@@ -1,0 +1,173 @@
+"""The per-frame front-end, PyTorch port of
+``sindslam_tpu/frontend/pipeline.py``: flow with the large-motion fallback,
+k-means re-clustering, edges, RAG merge, the flow-residual mask, fusion,
+the driver dilation and masked ORB for one RGB-D frame.
+
+``init_state`` and ``frontend_step`` are the entry points. They run on CUDA
+unless ``init_state`` is given ``device="cpu"``; ``frontend_step`` runs
+where its state lives. The random draws come from the ``torch.Generator``
+in the state, or are passed in (``jitter``, ``gumbel``) by tests that
+inject the reference's ``jax.random`` draws.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from sindslam_tpu_torch import resolve_device
+from sindslam_tpu_torch.config import SystemConfig
+from sindslam_tpu_torch.frontend.clustering import seg_by_kmeans
+from sindslam_tpu_torch.frontend.edges import cal_occluded
+from sindslam_tpu_torch.frontend.flow_mask import (flow_residual_mask,
+                                                   n_grid_samples,
+                                                   sample_weights)
+from sindslam_tpu_torch.frontend.fusion import fuse_masks
+from sindslam_tpu_torch.frontend.orb import OrbFeatures, extract_orb
+from sindslam_tpu_torch.frontend.rag_merge import rag_merge
+from sindslam_tpu_torch.ops import flow as flow_ops
+from sindslam_tpu_torch.ops import image as im
+from sindslam_tpu_torch.ops.homography import gumbel_draws
+from sindslam_tpu_torch.slam.frame import _depth_ur
+
+
+class FrontendState(NamedTuple):
+    """Recurrent state of the front-end (on the device it runs on)."""
+
+    pyr_m1: Tuple[torch.Tensor, ...]  # working-scale flow pyramid, frame n-1
+    pyr_m2: Tuple[torch.Tensor, ...]  # working-scale flow pyramid, frame n-2
+    prev_large: bool         # last frame's large-motion verdict
+    prev_labels: torch.Tensor  # (H, W) int32 k-means warm start
+    prev_mask: torch.Tensor    # (H, W) int32 previous dyna mask (255/125/0)
+    prev_high: torch.Tensor    # (H, W) bool previous high-residual mask
+    ratio_img: torch.Tensor    # (H, W) f32 per-pixel cluster dynamic ratio
+    dyn_score: torch.Tensor    # (H, W) f32 decaying per-pixel evidence
+    dyn_depth: torch.Tensor    # (H, W) f32 depth of that evidence
+    flow_u_w: torch.Tensor     # (wh, ww) f32 previous frame's raw
+    flow_v_w: torch.Tensor     # working-scale flow
+    generator: torch.Generator  # source of the per-frame random draws
+
+
+class FrontendOutput(NamedTuple):
+    dyna_mask: torch.Tensor   # (H, W) int32 255/125/0 (pre driver-dilation)
+    label_img: torch.Tensor   # (H, W) int32 cluster labels
+    features: OrbFeatures     # masked ORB features
+    large_motion: bool
+    kp_depth: torch.Tensor    # (N,) per-keypoint depth (0 = invalid)
+    kp_ur: torch.Tensor       # (N,) virtual-right u (-1 = mono)
+
+
+def _as_tensor(x, device, dtype=None) -> torch.Tensor:
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(x))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def init_state(cfg: SystemConfig, gray0, device=None, seed: int = 0
+               ) -> FrontendState:
+    """Initial front-end state from the first frame's (H, W) grayscale;
+    ``seed`` seeds the state's random generator."""
+    dev = resolve_device(device)
+    h, w = cfg.camera.height, cfg.camera.width
+    pyr0 = flow_ops.working_pyramid(_as_tensor(gray0, dev, torch.float32),
+                                    cfg.flow)
+    wsz = (cfg.flow.working_height, cfg.flow.working_width)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return FrontendState(
+        pyr_m1=pyr0, pyr_m2=pyr0, prev_large=False,
+        prev_labels=torch.full((h, w), -1, dtype=torch.int32, device=dev),
+        prev_mask=torch.zeros((h, w), dtype=torch.int32, device=dev),
+        prev_high=torch.zeros((h, w), dtype=torch.bool, device=dev),
+        ratio_img=torch.zeros((h, w), dtype=torch.float32, device=dev),
+        dyn_score=torch.zeros((h, w), dtype=torch.float32, device=dev),
+        dyn_depth=torch.zeros((h, w), dtype=torch.float32, device=dev),
+        flow_u_w=torch.zeros(wsz, dtype=torch.float32, device=dev),
+        flow_v_w=torch.zeros(wsz, dtype=torch.float32, device=dev),
+        generator=gen)
+
+
+def frontend_step(rgb, depth_m, state: FrontendState, cfg: SystemConfig,
+                  jitter: torch.Tensor | None = None,
+                  gumbel: torch.Tensor | None = None
+                  ) -> Tuple[FrontendOutput, FrontendState]:
+    """Full front-end for one frame: (H, W, 3) uint8 RGB and (H, W) f32
+    metric depth (numpy or tensors) in, output and next state out.
+
+    ``jitter`` (H, W) standard-normal and ``gumbel`` (ransac_iters, N)
+    standard-Gumbel draws replace the state generator's when given."""
+    dev = state.prev_mask.device
+    h, w = cfg.camera.height, cfg.camera.width
+    rgb = _as_tensor(rgb, dev)
+    depth_m = _as_tensor(depth_m, dev, torch.float32)
+    if jitter is None:
+        jitter = torch.randn((h, w), generator=state.generator,
+                             device=state.generator.device).to(dev)
+    if gumbel is None:
+        gumbel = gumbel_draws(cfg.dyna.ransac_iters,
+                              n_grid_samples(h, w, cfg.dyna),
+                              state.generator, dev)
+
+    stage = torch.profiler.record_function   # named ranges for profiling
+    with stage("frontend/flow"):
+        gray = im.rgb_to_gray(rgb)
+        valid = (depth_m > 0.05) & (depth_m <= cfg.dyna.max_depth_m)
+        # flow n -> n-2, large-motion fallback to n -> n-1
+        pyr_cur = flow_ops.working_pyramid(gray, cfg.flow)
+        u, v, large_motion, photo_err, flow_raw_w = \
+            flow_ops.flow_fallback_from_pyramids(
+                pyr_cur, state.pyr_m1, state.pyr_m2, valid, state.prev_large,
+                cfg.flow, cfg.dyna.large_motion_flow_px,
+                cfg.dyna.large_motion_frac, (h, w),
+                prev_flow_w=(state.flow_u_w, state.flow_v_w),
+                compose_max_flow_px=cfg.dyna.compose_max_flow_px)
+        unreliable = photo_err > cfg.dyna.photo_err_max
+
+    # geometry branch
+    with stage("frontend/kmeans"):
+        kml, _centers = seg_by_kmeans(depth_m, cfg.camera, cfg.dyna,
+                                      state.prev_labels)
+    with stage("frontend/edges"):
+        er = cal_occluded(depth_m, cfg.camera, cfg.dyna)
+    with stage("frontend/rag_merge"):
+        rr = rag_merge(kml, er.occluded1, er.occluded2, er.total_area,
+                       depth_m, cfg.dyna)
+
+    with stage("frontend/flow_mask"):
+        wmap = sample_weights(state.prev_mask, state.ratio_img, cfg.dyna,
+                              jitter)
+        fm = flow_residual_mask(
+            u, v, wmap, valid, cfg.dyna, gumbel, depth_m=depth_m,
+            unreliable=unreliable,
+            prev_dyn=state.prev_mask == cfg.dyna.mask_dynamic)
+    with stage("frontend/fusion"):
+        fu = fuse_masks(fm.low_mask, fm.high_mask, state.prev_high,
+                        rr.label_img, valid, cfg.dyna,
+                        prev_ratio_img=state.ratio_img,
+                        prev_dyn_score=state.dyn_score,
+                        prev_dyn_depth=state.dyn_depth, depth_m=depth_m,
+                        flow_w=flow_raw_w,
+                        flow_scale=1.0 if large_motion else 0.5)
+
+    with stage("frontend/orb"):
+        # driver-side dilation, applied only to the feature-erasure mask
+        dyn_wide = im.dilate_ellipse(
+            (fu.dyna_mask == cfg.dyna.mask_dynamic).to(torch.float32),
+            cfg.dyna.mask_dilate_ksize) > 0.5
+        mask_for_orb = torch.where(dyn_wide, cfg.dyna.mask_dynamic,
+                                   fu.dyna_mask)
+        feats = extract_orb(gray, mask_for_orb, cfg.orb, height=h, width=w)
+        kp_depth, kp_ur = _depth_ur(feats.xy, depth_m, cfg.camera)
+
+    new_state = FrontendState(
+        pyr_m1=pyr_cur, pyr_m2=state.pyr_m1, prev_large=large_motion,
+        prev_labels=kml, prev_mask=fu.dyna_mask, prev_high=fm.high_mask,
+        ratio_img=fu.ratio_img, dyn_score=fu.dyn_score,
+        dyn_depth=fu.dyn_depth, flow_u_w=flow_raw_w[0],
+        flow_v_w=flow_raw_w[1], generator=state.generator)
+    out = FrontendOutput(dyna_mask=fu.dyna_mask, label_img=rr.label_img,
+                         features=feats, large_motion=large_motion,
+                         kp_depth=kp_depth, kp_ur=kp_ur)
+    return out, new_state
