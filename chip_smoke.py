@@ -4,14 +4,17 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the four CUDA kernels of ``sindslam_tpu_torch/csrc`` with
-   ``nvcc`` (one process per source, all at once) and prints the build time;
+2. builds the CUDA sources of ``sindslam_tpu_torch/csrc`` with ``nvcc``
+   (one process per source, all at once) and prints the build time;
 3. records each kernel's inputs as the main path gives them (frames 2-4
    at the default 640x480 config, after two warm-up frames), checks that
    they are not trivial, then holds every kernel against its plain PyTorch
-   version on those inputs on the card (K2 also on a serpentine at its
-   sweep budget) and times both with CUDA events; K4 is also timed against
-   the one PyTorch indexing call that computes the same function;
+   version on those inputs on the card and times both with CUDA events: K1
+   at every pyramid level the main path solved (both of its regimes, with
+   its CUDA launches per call), K2 also on a serpentine at its sweep
+   budget, the fused BRIEF kernel bit for bit and beside the chain of
+   PyTorch calls it replaces, and the standalone patch gather on the same
+   corners beside the one PyTorch indexing call that computes it;
 4. checks the CUDA path against the port's CPU path on a small input;
 5. zeroes the launch counters, runs ``init_state`` and 12 frames of
    ``frontend_step`` at the full default config on the ``dyn_walk``
@@ -19,8 +22,11 @@
    and prints the mask IoU against the ground truth and frames per second;
 6. runs frames 2-6 again under ``torch.profiler`` and prints the device's
    busy time and idle share per frame, the host time per stage and the
-   device time of the top kernels;
-7. prints a ``{"kernels": [...]}`` line, then as its last line
+   device time of the top kernels and the host-to-device copies per frame;
+7. prints a ``{"kernels_off_main_path": [...]}`` line for the standalone
+   patch gather (the main path reaches its loader only through the fused
+   BRIEF kernel, so its launch count there is 0), a ``{"kernels": [...]}``
+   line for the kernels the main path launches, then as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero; it also exits
@@ -44,12 +50,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
-REPLACES = {
-    "sor_inner": "sindslam_tpu/ops/pallas_kernels.py:169",
-    "cc_labels": "sindslam_tpu/ops/pallas_kernels.py:262",
-    "fast_nms": "sindslam_tpu/ops/pallas_kernels.py:368",
-    "extract_patches": "sindslam_tpu/ops/pallas_kernels.py:425",
+# wrapper -> (CUDA source, TPU kernel it replaces)
+KERNELS = {
+    "sor_inner": ("sor_inner", "sindslam_tpu/ops/pallas_kernels.py:169"),
+    "cc_labels": ("cc_labels", "sindslam_tpu/ops/pallas_kernels.py:262"),
+    "fast_nms": ("fast_nms", "sindslam_tpu/ops/pallas_kernels.py:368"),
+    "brief_from_patches": ("extract_patches",
+                           "sindslam_tpu/ops/pallas_kernels.py:425"),
+    "extract_patches": ("extract_patches",
+                        "sindslam_tpu/ops/pallas_kernels.py:425"),
 }
+MAIN_PATH = ("sor_inner", "cc_labels", "fast_nms", "brief_from_patches")
 N_FRAMES = 12
 IOU_FLOOR = 0.5
 
@@ -73,6 +84,43 @@ def time_ms(torch, fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_us(torch, fn, kernel: str, reps: int = 5):
+    """(device microseconds, launches) of the CUDA kernels whose name holds
+    ``kernel`` in one call of ``fn``, a mean over ``reps`` calls under
+    ``torch.profiler``: what the card spends, without the host's share of a
+    CUDA-event time."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name]
+    return sum(spans) / reps, len(spans) / reps
+
+
+def device_us_expecting(torch, fn, kernel: str, expected: int, what: str):
+    """``device_us`` held against the ``expected`` launches a call that the
+    wrapper's own counter gave. The counter decides; the profiler's trace
+    corroborates it. A trace can drop events, so a reading with fewer is
+    taken again (three times at most) and then only reported, while a
+    reading with more launches than counted fails."""
+    for _ in range(3):
+        us, n = device_us(torch, fn, kernel)
+        if n == expected:
+            return us, n
+    check(n < expected, f"{what}: the trace shows {n} {kernel} launches a "
+                        f"call, the wrapper counted {expected}")
+    print(f"{what}: the trace shows {n} of {expected} {kernel} launches a "
+          f"call in three readings (events dropped); device time is of "
+          f"those seen", flush=True)
+    return us, n
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -105,8 +153,9 @@ def nontrivial(name, args) -> bool:
 
 class Recorder:
     """Wraps the kernel wrappers of ``cuda_kernels`` and keeps, per kernel
-    and call signature, the inputs of the last of the largest non-trivial
-    calls the main path made."""
+    and call signature (K1: per level shape, K2: per sweep budget), the
+    inputs of the last of the largest non-trivial calls the main path
+    made."""
 
     def __init__(self, torch, ck):
         self.torch, self.ck = torch, ck
@@ -114,7 +163,7 @@ class Recorder:
         self.saved = {}
 
     def __enter__(self):
-        for name in ("sor_inner", "cc_labels", "fast_nms", "extract_patches"):
+        for name in KERNELS:
             orig = getattr(self.ck, name)
             self.saved[name] = orig
             setattr(self.ck, name, self._wrap(name, orig))
@@ -126,10 +175,13 @@ class Recorder:
 
     def _wrap(self, name, orig):
         def rec(*args, **kw):
-            # the main path passes n_sweeps by keyword
-            key = f"cc_labels/{kw['n_sweeps']}" if name == "cc_labels" else name
+            key = name
+            if name == "cc_labels":     # the main path passes it by keyword
+                key = f"cc_labels/{kw['n_sweeps']}"
+            elif name == "sor_inner":
+                key = "sor_inner/%dx%d" % tuple(args[0].shape)
             size = args[0].numel()
-            if name == "extract_patches":
+            if name == "brief_from_patches":
                 size += args[1].numel()
             rank = (nontrivial(name, args), size)
             if key not in self.calls or rank >= self.calls[key][0]:
@@ -157,6 +209,7 @@ def main() -> int:
     from sindslam_tpu_torch.ops import _build
     from sindslam_tpu_torch.ops import cuda_kernels as ck
     from sindslam_tpu_torch.ops import image as im
+    from sindslam_tpu_torch.ops.flow import pyramid_shapes
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -170,9 +223,8 @@ def main() -> int:
     # ---- 2. build
     t0 = time.perf_counter()
     logs = _build.build()
-    for name in _build.KERNEL_SOURCES:
-        ck_fn = _build.load(name)
-        check(ck_fn is not None, f"{name} did not load")
+    for symbol in _build.SIGNATURES:
+        check(_build.load(symbol) is not None, f"{symbol} did not load")
     print(f"build: {time.perf_counter() - t0:.1f} s for "
           f"{len(logs)} sources (nvcc, sm_90a)", flush=True)
     for name, log in logs.items():
@@ -195,14 +247,21 @@ def main() -> int:
         for i in range(2, 5):
             _, st = fp.frontend_step(rgbs[i], depths[i], st, cfg)
         torch.cuda.synchronize()
-    check(set(rec.calls) == {"sor_inner", "cc_labels/768", "cc_labels/256",
-                             "fast_nms", "extract_patches"},
+    levels = pyramid_shapes(cfg.flow.working_height, cfg.flow.working_width,
+                            cfg.flow.pyramid_scale, cfg.flow.n_levels)
+    k1_keys = ["sor_inner/%dx%d" % hw for hw in levels]
+    check(set(rec.calls) == {*k1_keys, "cc_labels/768", "cc_labels/256",
+                             "fast_nms", "brief_from_patches"},
           f"unexpected kernel calls on the main path: {sorted(rec.calls)}")
 
     results = {}
 
-    def compare(name, key, tol_abs, tol_rel, plain_reps, kernel_reps=20):
-        _rank, args, kw = rec.calls[key]
+    def compare(name, key, tol_abs, tol_rel, plain_reps, kernel_reps=20,
+                args=None):
+        if args is None:
+            _rank, args, kw = rec.calls[key]
+        else:
+            kw = {}
         kern = rec.saved[name]
         plain = getattr(ck, name + "_plain")
         got = kern(*args, **kw)
@@ -224,20 +283,42 @@ def main() -> int:
               f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms", flush=True)
         return args, kw, err, ms, plain_ms, ref
 
-    # K1 sor_inner at the finest working level
-    args, kw, err, ms, pms, ref = compare("sor_inner", "sor_inner",
-                                          1e-4, 1e-3, 3)
-    du_max = max(float(ref[0].abs().max()), float(ref[1].abs().max()))
-    print(f"sor_inner case: max |du|,|dv| {du_max:.4g}, max |iz| "
-          f"{float(args[2].abs().max()):.4g}", flush=True)
-    check(du_max > 1e-3, f"sor_inner case is trivial (max |du|,|dv| {du_max})")
-    h, w = args[0].shape
-    px = h * w
-    # per pixel and re-weighting ~150 ops (robust weights, 5 smoothness
-    # weights of ~12 ops, 2x2 system, folded terms); per pixel and sweep ~42
-    ops = px * kw["inner"] * (150 + 42 * kw["sweeps"])
-    results["sor_inner"] = dict(err=err, ms=ms, plain_ms=pms, shape=(h, w),
-                                bound=bound_ms(12 * px * 4, ops))
+    # K1 sor_inner at every level the main path solved: tiles with a halo
+    # at the large levels, one block (one launch a call) at the small ones
+    k1_plan = _build.load("sor_inner_launches")
+    for (h, w), key in zip(levels, k1_keys):
+        check(rec.calls[key][0][0], f"{key}: no non-trivial call recorded")
+        args, kw, err, ms, pms, ref = compare("sor_inner", key, 1e-4, 1e-3, 2)
+        du_max = max(float(ref[0].abs().max()), float(ref[1].abs().max()))
+        n_cuda = k1_plan(h, w, kw["inner"], kw["sweeps"])
+        ck.reset_launch_counts()
+        rec.saved["sor_inner"](*args, **kw)
+        check(ck.SOR_INNER_CUDA_LAUNCHES[(h, w)] == [1, n_cuda],
+              f"{key}: the wrapper issued "
+              f"{ck.SOR_INNER_CUDA_LAUNCHES[(h, w)]}, {n_cuda} planned")
+        dev_t, dev_n = device_us_expecting(
+            torch, lambda: rec.saved["sor_inner"](*args, **kw), "sor_tile",
+            n_cuda, key)
+        print(f"{key} case: max |du|,|dv| {du_max:.4g}, max |iz| "
+              f"{float(args[2].abs().max()):.4g}; {n_cuda} CUDA launches a "
+              f"call (inner {kw['inner']}, sweeps {kw['sweeps']}), "
+              f"{dev_t:.1f} us of device time in {dev_n:.0f} launches",
+              flush=True)
+        check(du_max > 1e-3, f"{key} case is trivial (max |du|,|dv| {du_max})")
+        one_block = h * w <= 51 * 68
+        check(n_cuda == (1 if one_block else kw["inner"]) and n_cuda <= 10,
+              f"{key}: {n_cuda} CUDA launches a call")
+        if (h, w) == levels[0]:
+            px = h * w
+            # per pixel and re-weighting ~150 ops (robust weights, the
+            # smoothness weight, 2x2 system, folded terms); per pixel and
+            # sweep ~42
+            ops = px * kw["inner"] * (150 + 42 * kw["sweeps"])
+            results["sor_inner"] = dict(err=err, ms=ms, plain_ms=pms,
+                                        shape=(h, w),
+                                        bound=bound_ms(12 * px * 4, ops))
+        else:
+            results["sor_inner"]["err"] = max(results["sor_inner"]["err"], err)
 
     # K2 cc_labels: both main-path calls, plus the serpentine at its budget
     errs, k2 = [], {}
@@ -285,28 +366,74 @@ def main() -> int:
     results["fast_nms"] = dict(err=err, ms=ms, plain_ms=pms, shape=(h, w),
                                bound=bound_ms(2 * h * w * 4, 600 * h * w))
 
-    # K4 extract_patches: all keypoints of a frame on the blurred atlas
-    args, kw, err, ms, pms, (ref,) = compare("extract_patches",
-                                             "extract_patches", 0, 0, 10)
-    img, y0, x0 = args[0], args[1], args[2]
-    P = kw.get("patch", 28)
-    # the same function as one indexing call on a strided view: the main
-    # path's corners are already clipped to [0, dim - P]
+    # K4 fused with the BRIEF test: all keypoints of a frame on the blurred
+    # atlas, bit for bit
+    args, kw, err, ms, pms, (ref,) = compare("brief_from_patches",
+                                             "brief_from_patches", 0, 0, 10)
+    img, y0, x0, bins, table = args
+    P = 28
+    n = y0.shape[0]
+    # the chain of PyTorch calls the kernel replaces, its first link the one
+    # indexing call on a strided view that computes the windows (the main
+    # path's corners are already clipped to [0, dim - P])
     windows = img.unfold(0, P, 1).unfold(1, P, 1)
     yl, xl = y0.long(), x0.long()
-    check(torch.equal(windows[yl, xl], ref),
-          "unfold-and-index gather differs from extract_patches")
-    lib_ms = time_ms(torch, lambda: windows[yl, xl], 20)
-    print(f"extract_patches library call (unfold + index): {lib_ms:.4f} ms",
-          flush=True)
+
+    def chain():
+        samples = torch.gather(windows[yl, xl].reshape(n, P * P), 1,
+                               table[bins.long()].long())
+        return ck.pack_bits(samples[:, :256] < samples[:, 256:])
+
+    check(torch.equal(chain(), ref), "PyTorch BRIEF chain differs from plain")
+    chain_ms = time_ms(torch, chain, 20)
+    print(f"brief_from_patches chain of PyTorch calls (unfold + index, table"
+          f" lookup, gather, compare, pack): {chain_ms:.4f} ms", flush=True)
     touched = torch.zeros_like(img, dtype=torch.bool)
     for yy, xx in zip(y0.tolist(), x0.tolist()):
         touched[yy:yy + P, xx:xx + P] = True
-    n = y0.shape[0]
-    moved = int(touched.sum()) * 4 + 2 * n * 4 + n * P * P * 4
-    results["extract_patches"] = dict(err=err, ms=ms, plain_ms=pms,
-                                      shape=(n, P, P), bound=bound_ms(moved, 0),
-                                      library_ms=lib_ms)
+    img_bytes = int(touched.sum()) * 4
+    table_bytes = len(torch.unique(bins)) * 512 * 4
+    results["brief_from_patches"] = dict(
+        err=err, ms=ms, plain_ms=pms, shape=(n, 8), library_ms=chain_ms,
+        bound=bound_ms(img_bytes + table_bytes + 3 * n * 4 + n * 32, n * 256))
+    # what one call of brief_from_patches launches and allocates
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rec.saved["brief_from_patches"](*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    n_counted = ck.LAUNCHES["brief_from_patches"]
+    brief_us, n_brief = device_us_expecting(
+        torch, lambda: rec.saved["brief_from_patches"](*args), "brief_kernel",
+        1, "brief_from_patches")
+    print(f"brief_from_patches call: {n_counted} kernel launch by the "
+          f"wrapper's count ({n_brief:.1f} brief_kernel a call in the trace, "
+          f"{brief_us:.1f} us of device time in the kernel), "
+          f"peak extra memory {peak} B against {n * P * P * 4} B of "
+          f"(N, 28, 28) windows and {n * 512 * 4} B of (N, 512) samples",
+          flush=True)
+    check(n_counted == 1, "brief_from_patches did not launch exactly one kernel")
+    check(peak < n * 512 * 4, "brief_from_patches allocated an intermediate")
+
+    # K4 alone on the same corners, beside the one indexing call
+    _a, _k, err, ms, pms, (ref,) = compare("extract_patches", "extract_patches",
+                                           0, 0, 10,
+                                           args=[img, y0, x0])
+    check(torch.equal(windows[yl, xl], ref),
+          "unfold-and-index gather differs from extract_patches")
+    lib_ms = time_ms(torch, lambda: windows[yl, xl], 20)
+    dev_t, _n = device_us(
+        torch, lambda: rec.saved["extract_patches"](img, y0, x0),
+        "patches_kernel")
+    lib_t, _n = device_us(torch, lambda: windows[yl, xl], "index")
+    print(f"extract_patches library call (unfold + index): {lib_ms:.4f} ms; "
+          f"device time kernel {dev_t:.1f} us, library call {lib_t:.1f} us",
+          flush=True)
+    results["extract_patches"] = dict(
+        err=err, ms=ms, plain_ms=pms, shape=(n, P, P), library_ms=lib_ms,
+        bound=bound_ms(img_bytes + 2 * n * 4 + n * P * P * 4, 0))
 
     # ---- 4. the CUDA path against the port's CPU path on a small input
     ht, wt = 64, 128
@@ -373,8 +500,12 @@ def main() -> int:
         if i >= 2 and gt.any():
             check((masks[-1] == 255).any(), f"frame {i}: empty dynamic mask")
     counts = dict(ck.LAUNCHES)
-    for name, c in counts.items():
-        check(c > 0, f"kernel {name} never launched on the main path")
+    for name in MAIN_PATH:
+        check(counts[name] > 0,
+              f"kernel {name} never launched on the main path")
+    k1_levels = {hw: tuple(c) for hw, c in ck.SOR_INNER_CUDA_LAUNCHES.items()}
+    check(set(k1_levels) == set(levels),
+          f"sor_inner ran at {sorted(k1_levels)}, not at every level")
     ious = []
     for (_rgb, _d, gt, _p, _t), m in list(zip(frames, masks))[2:]:
         if gt.sum():
@@ -388,7 +519,7 @@ def main() -> int:
           f"ground truth {iou:.4f} (frames 2-{N_FRAMES - 1}), front-end "
           f"{fps:.2f} frames/s (median frame {1e3 * statistics.median(steady):.1f}"
           f" ms, first frame {1e3 * times[0]:.1f} ms)", flush=True)
-    for name in _build.KERNEL_SOURCES:
+    for name in KERNELS:
         r = results[name]
         print(f"{name}: {counts[name]} launches in {N_FRAMES} frames "
               f"({counts[name] / N_FRAMES:.2f}/frame), kernel {r['ms']:.4f} ms, "
@@ -397,6 +528,14 @@ def main() -> int:
     print(f"cc_labels at (120, 160, 256): kernel "
           f"{results['cc_labels']['ms_256']:.4f} ms plain "
           f"{results['cc_labels']['plain_ms_256']:.4f} ms")
+    for hw in levels:
+        calls, n_cuda = k1_levels[hw]
+        print(f"sor_inner at {hw}: {calls} calls, {n_cuda} CUDA launches "
+              f"({n_cuda / calls:.0f} a call)")
+    k1_calls = sum(c for c, _n in k1_levels.values())
+    k1_cuda = sum(n for _c, n in k1_levels.values())
+    print(f"sor_inner in all: {k1_cuda} CUDA launches in {k1_calls} calls, "
+          f"{k1_cuda / N_FRAMES:.1f} a frame", flush=True)
 
     # ---- 6. where the time goes: frames 2-6 again under torch.profiler
     n_prof = 5
@@ -432,18 +571,27 @@ def main() -> int:
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  {t / 1e3 / n_prof:8.3f} ms/frame {c / n_prof:7.1f} "
               f"calls/frame  {name[:80]}")
+    t_h2d, n_h2d = 0.0, 0
+    for name, (t, c) in by_name.items():
+        if "memcpy" in name.lower() and "htod" in name.lower():
+            t_h2d, n_h2d = t_h2d + t, n_h2d + c
+    print(f"  host-to-device copies: {n_h2d / n_prof:.1f} a frame, "
+          f"{t_h2d / 1e3 / n_prof:.3f} ms/frame")
 
-    kernels = [{
-        "name": name, "route": "cuda",
-        "source": f"sindslam_tpu_torch/csrc/{name}.cu",
-        "replaces": REPLACES[name], "launches": counts[name],
-        "max_abs_err": results[name]["err"], "ms": results[name]["ms"],
-        "plain_ms": results[name]["plain_ms"],
-        "bound_ms": results[name]["bound"][0],
-        "bound_by": results[name]["bound"][1],
-        "library_ms": results[name].get("library_ms"),
-    } for name in _build.KERNEL_SOURCES]
-    print(json.dumps({"kernels": kernels}))
+    def entry(name):
+        r = results[name]
+        return {
+            "name": name, "route": "cuda",
+            "source": f"sindslam_tpu_torch/csrc/{KERNELS[name][0]}.cu",
+            "replaces": KERNELS[name][1], "launches": counts[name],
+            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": r.get("library_ms"),
+        }
+
+    print(json.dumps({"kernels_off_main_path": [
+        entry(name) for name in KERNELS if name not in MAIN_PATH]}))
+    print(json.dumps({"kernels": [entry(name) for name in MAIN_PATH]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,23 +5,54 @@
 // gradient and smoothness weights, each rsqrt(x^2 + 1e-6)), each followed by
 // `sweeps` red-black SOR sweeps on (du, dv) with relaxation omega.
 //
-// Bound on the H100: memory traffic. A 288x384 level is 442 KB per field, so
-// the 10 input fields, du/dv and the 10 sweep-invariant coefficient fields
-// (~10 MB) live in the 50 MB L2 but not in one SM's shared memory, and every
-// colour half-sweep needs a grid-wide barrier: a red pixel reads only black
-// neighbours and the reverse, so each half-sweep is parallel and exact, but
-// it must see the whole previous half-sweep.
-// Design: one launch per re-weighting (computes and stores the coefficients,
-// folding the sweep-invariant terms as the Pallas body does) and one launch
-// per colour half-sweep (updates du/dv in place). One call issues
-// inner * (1 + 2 * sweeps) launches on the caller's stream; the kernel
-// boundaries are the grid barriers.
+// Bound on the H100: launch latency and barriers, not bytes or operations.
+// The whole 288x384 level is 5 MB of inputs against ~20 MFLOP per
+// re-weighting (a few microseconds either way), but every colour half-sweep
+// must see the whole previous one: a red pixel reads only black neighbours
+// and the reverse, so a half-sweep is parallel and exact, and between two of
+// them stands a barrier. With one launch per half-sweep a call costs
+// inner * (1 + 2 * sweeps) = 85 launches of ~4 us each.
+// Design: the state of a solve lives in shared memory (12 floats a pixel,
+// each field with a ring of zeros around the tile:
+// du, dv, u, v, the smoothness weight psi_s, and the 7 sweep-invariant terms
+// cu, cv, a12, 1/diag_u, 1/diag_v and the two edge-weight fields), and the
+// barrier between half-sweeps is __syncthreads(). One kernel, two regimes,
+// chosen by sor_inner_launches from the level's size:
+//  - a level that with its ring has at most kMaxPixels pixels is one
+//    block's tile: one launch runs all `inner` re-weightings and every sweep;
+//  - a larger level is cut into interiors of kTile - 2 * halo pixels a side.
+//    A block loads its interior with a halo of 2 * sweeps + 1 pixels and
+//    runs one re-weighting and all its sweeps on the tile: each half-sweep
+//    spoils one more ring of the halo (its neighbours outside the tile were
+//    not updated), so the block updates a region that shrinks by one ring per
+//    half-sweep and ends exactly on its interior. The re-weighting costs the
+//    extra ring: psi_s of a neighbour reads that neighbour's neighbours.
+//    Halo pixels repeat the arithmetic of the block that owns them on the
+//    same values, so interiors agree bit for bit with the stepwise order.
+//    One launch per re-weighting: `inner` launches a call. Blocks read
+//    (du, dv) of the previous re-weighting from one buffer and write their
+//    interiors to the other, so no block reads what another is writing.
+// The image border is not a tile border: a tile is clipped to the image,
+// neighbour indices replicate-clamp and the edge weights across the border
+// are zero, inside tiles too; a clipped side does not shrink.
+// psi_s is computed once per pixel. The edge weights are symmetric
+// (w_down(r, c) = w_up(r + 1, c), w_right(r, c) = w_left(r, c + 1), the sum
+// of the same two floats), so two fields serve four directions.
+// Arithmetic: the expression shapes of the stepwise kernel this replaces
+// and of the Pallas body, (alpha * w) * inv * neighbour summed left to
+// right, so nvcc contracts the same products into FMAs.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr float kEps2 = 1e-6f;
+constexpr int kTile = 64;          // loaded tile side of the tiled regime
+constexpr int kMinInterior = 14;   // smallest interior side worth tiling
+constexpr int kBlockX = 32, kBlockY = 32;
+constexpr int kFields = 12;        // shared-memory floats per pixel
+constexpr int kMaxSmemBytes = 232448;  // 227 KB a block on sm_90
+constexpr int kMaxPixels = kMaxSmemBytes / (kFields * 4);  // 4842
 
 struct Level {
   const float* ix; const float* iy; const float* iz;
@@ -31,132 +62,281 @@ struct Level {
   int h; int w;
 };
 
-__device__ __forceinline__ float psi_s_at(const Level& L, const float* du,
-                                          const float* dv, int r, int c) {
-  // smoothness weight on the total flow (u + du, v + dv), replicate borders
-  const int w = L.w;
-  const int rl = max(r - 1, 0), rh = min(r + 1, L.h - 1);
-  const int cl = max(c - 1, 0), ch = min(c + 1, w - 1);
-  auto U = [&](int y, int x) { int i = y * w + x; return L.u[i] + du[i]; };
-  auto V = [&](int y, int x) { int i = y * w + x; return L.v[i] + dv[i]; };
-  const float ux = (U(r, ch) - U(r, cl)) * 0.5f;
-  const float uy = (U(rh, c) - U(rl, c)) * 0.5f;
-  const float vx = (V(r, ch) - V(r, cl)) * 0.5f;
-  const float vy = (V(rh, c) - V(rl, c)) * 0.5f;
-  return rsqrtf(ux * ux + uy * uy + vx * vx + vy * vy + kEps2);
-}
+// An even row pitch keeps the half-sweeps free of bank conflicts.
+__host__ __device__ inline int padded_width(int w) { return (w + 1) & ~1; }
 
-__global__ void reweight_kernel(Level L, const float* __restrict__ du,
-                                const float* __restrict__ dv,
-                                float* __restrict__ coef, float alpha,
-                                float gamma) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y * blockDim.y + threadIdx.y;
+struct Params {
+  float alpha; float gamma; float omega;
+  int sweeps;
+  int n_iter;    // re-weightings run inside one launch
+  int interior;  // interior side per block
+  int halo;      // rings loaded around the interior
+};
+
+// du_in, dv_in: the increment before this launch, or null for zero.
+// du_out, dv_out: receive each block's interior.
+__global__ void __launch_bounds__(kBlockX* kBlockY, 1)
+sor_tile_kernel(Level L, const float* __restrict__ du_in,
+                const float* __restrict__ dv_in, float* __restrict__ du_out,
+                float* __restrict__ dv_out, Params P) {
+  extern __shared__ float smem[];
   const int h = L.h, w = L.w;
-  if (r >= h || c >= w) return;
-  const int i = r * w + c;
-  const float ix = L.ix[i], iy = L.iy[i], iz = L.iz[i];
-  const float ixx = L.ixx[i], ixy = L.ixy[i], iyy = L.iyy[i];
-  const float ixz = L.ixz[i], iyz = L.iyz[i];
-  const float d_u = du[i], d_v = dv[i];
+  const int tx = threadIdx.x, ty = threadIdx.y;
 
-  const float r_data = iz + ix * d_u + iy * d_v;
-  const float psi_d = rsqrtf(r_data * r_data + kEps2);
-  const float gx = ixz + ixx * d_u + ixy * d_v;
-  const float gy = iyz + ixy * d_u + iyy * d_v;
-  const float psi_g = rsqrtf(gx * gx + gy * gy + kEps2) * gamma;
+  // interior [R0, R1) x [C0, C1); loaded tile [r_lo, r_hi) x [c_lo, c_hi),
+  // clipped to the image
+  const int R0 = blockIdx.y * P.interior, R1 = min(R0 + P.interior, h);
+  const int C0 = blockIdx.x * P.interior, C1 = min(C0 + P.interior, w);
+  const int r_lo = max(R0 - P.halo, 0), r_hi = min(R1 + P.halo, h);
+  const int c_lo = max(C0 - P.halo, 0), c_hi = min(C1 + P.halo, w);
+  const int th = r_hi - r_lo, tw = c_hi - c_lo;
+  // every field carries a ring of one pixel around the tile, so that
+  // index lr * pw + lc holds for -1 <= lr <= th and -1 <= lc <= tw
+  const int pw = padded_width(tw + 2);  // shared-memory row pitch
+  const int n = (th + 2) * pw;
+  // a side is open where the tile ends inside the image: values beyond it
+  // are unknown, so what is valid shrinks from that side
+  const int top = r_lo > 0, bottom = r_hi < h;
+  const int left = c_lo > 0, right = c_hi < w;
 
-  const int up = max(r - 1, 0), down = min(r + 1, h - 1);
-  const int left = max(c - 1, 0), right = min(c + 1, w - 1);
-  const float ps = psi_s_at(L, du, dv, r, c);
-  const float w_up = r > 0 ? 0.5f * (ps + psi_s_at(L, du, dv, up, c)) : 0.0f;
-  const float w_down =
-      r < h - 1 ? 0.5f * (ps + psi_s_at(L, du, dv, down, c)) : 0.0f;
-  const float w_left =
-      c > 0 ? 0.5f * (ps + psi_s_at(L, du, dv, r, left)) : 0.0f;
-  const float w_right =
-      c < w - 1 ? 0.5f * (ps + psi_s_at(L, du, dv, r, right)) : 0.0f;
-  const float wsum = w_up + w_down + w_left + w_right;
+  float* s_du = smem + pw + 1;
+  float* s_dv = s_du + n;
+  float* s_u = s_dv + n;
+  float* s_v = s_u + n;
+  float* s_ps = s_v + n;
+  float* s_cu = s_ps + n;
+  float* s_cv = s_cu + n;
+  float* s_a12 = s_cv + n;
+  float* s_idu = s_a12 + n;
+  float* s_idv = s_idu + n;
+  float* s_wv = s_idv + n;  // alpha * weight of the edge to the pixel above
+  float* s_wh = s_wv + n;   // alpha * weight of the edge to the left pixel
 
-  const float a11 = psi_d * ix * ix + psi_g * (ixx * ixx + ixy * ixy);
-  const float a12 = psi_d * ix * iy + psi_g * (ixx * ixy + ixy * iyy);
-  const float a22 = psi_d * iy * iy + psi_g * (ixy * ixy + iyy * iyy);
-  const float b_u = -(psi_d * ix * iz + psi_g * (ixx * ixz + ixy * iyz));
-  const float b_v = -(psi_d * iy * iz + psi_g * (ixy * ixz + iyy * iyz));
-  const float inv_du = 1.0f / (a11 + alpha * wsum + 1e-12f);
-  const float inv_dv = 1.0f / (a22 + alpha * wsum + 1e-12f);
+  // The ring holds zero flow under zero edge weights: a half-sweep reads
+  // its four neighbours without clamping, and what it reads across the
+  // image border counts for nothing, as the clamped neighbour does.
+  for (int lr = ty - 1; lr <= th; lr += kBlockY) {
+    for (int lc = tx - 1; lc <= tw; lc += kBlockX) {
+      const bool inside = lr >= 0 && lr < th && lc >= 0 && lc < tw;
+      const int g = (r_lo + lr) * w + c_lo + lc;
+      const int i = lr * pw + lc;
+      s_u[i] = inside ? L.u[g] : 0.0f;
+      s_v[i] = inside ? L.v[g] : 0.0f;
+      s_du[i] = inside && du_in ? du_in[g] : 0.0f;
+      s_dv[i] = inside && dv_in ? dv_in[g] : 0.0f;
+      s_wv[i] = 0.0f;
+      s_wh[i] = 0.0f;
+    }
+  }
+  __syncthreads();
 
-  // the neighbour sum over the BASE flow is constant across sweeps
-  const float* u = L.u;
-  const float* v = L.v;
-  const float su_base = w_up * u[up * w + c] + w_down * u[down * w + c] +
-                        w_left * u[r * w + left] + w_right * u[r * w + right] -
-                        wsum * u[i];
-  const float sv_base = w_up * v[up * w + c] + w_down * v[down * w + c] +
-                        w_left * v[r * w + left] + w_right * v[r * w + right] -
-                        wsum * v[i];
-  const int n = h * w;
-  coef[0 * n + i] = (b_u + alpha * su_base) * inv_du;
-  coef[1 * n + i] = (b_v + alpha * sv_base) * inv_dv;
-  coef[2 * n + i] = a12 * inv_du;
-  coef[3 * n + i] = a12 * inv_dv;
-  coef[4 * n + i] = alpha * w_up;
-  coef[5 * n + i] = alpha * w_down;
-  coef[6 * n + i] = alpha * w_left;
-  coef[7 * n + i] = alpha * w_right;
-  coef[8 * n + i] = inv_du;
-  coef[9 * n + i] = inv_dv;
+  for (int it = 0; it < P.n_iter; ++it) {
+    // psi_s: smoothness weight on the total flow (u + du, v + dv), replicate
+    // borders; valid one ring inside an open side
+    for (int lr = top + ty; lr < th - bottom; lr += kBlockY) {
+      const int gr = r_lo + lr;
+      const int ru = (gr > 0 ? lr - 1 : lr) * pw;
+      const int rd = (gr < h - 1 ? lr + 1 : lr) * pw;
+      for (int lc = left + tx; lc < tw - right; lc += kBlockX) {
+        const int gc = c_lo + lc;
+        const int cl = gc > 0 ? lc - 1 : lc;
+        const int cr = gc < w - 1 ? lc + 1 : lc;
+        const int rc = lr * pw;
+        auto U = [&](int i) { return s_u[i] + s_du[i]; };
+        auto V = [&](int i) { return s_v[i] + s_dv[i]; };
+        const float ux = (U(rc + cr) - U(rc + cl)) * 0.5f;
+        const float uy = (U(rd + lc) - U(ru + lc)) * 0.5f;
+        const float vx = (V(rc + cr) - V(rc + cl)) * 0.5f;
+        const float vy = (V(rd + lc) - V(ru + lc)) * 0.5f;
+        s_ps[rc + lc] =
+            rsqrtf(ux * ux + uy * uy + vx * vx + vy * vy + kEps2);
+      }
+    }
+    __syncthreads();
+
+    // edge weights wherever psi_s and its up / left neighbour are valid;
+    // the sweep-invariant terms two rings inside an open side
+    for (int lr = top + ty; lr < th - bottom; lr += kBlockY) {
+      const int gr = r_lo + lr;
+      const bool in_q_row = lr >= 2 * top && lr < th - 2 * bottom;
+      for (int lc = left + tx; lc < tw - right; lc += kBlockX) {
+        const int gc = c_lo + lc;
+        const int i = lr * pw + lc;
+        const float ps = s_ps[i];
+        const float w_up =
+            (gr > 0 && lr > top) ? 0.5f * (ps + s_ps[i - pw]) : 0.0f;
+        const float w_left =
+            (gc > 0 && lc > left) ? 0.5f * (ps + s_ps[i - 1]) : 0.0f;
+        s_wv[i] = P.alpha * w_up;
+        s_wh[i] = P.alpha * w_left;
+        if (!in_q_row || lc < 2 * left || lc >= tw - 2 * right) continue;
+
+        const float w_down =
+            gr < h - 1 ? 0.5f * (ps + s_ps[i + pw]) : 0.0f;
+        const float w_right =
+            gc < w - 1 ? 0.5f * (ps + s_ps[i + 1]) : 0.0f;
+        const float wsum = w_up + w_down + w_left + w_right;
+
+        const int g = gr * w + gc;
+        const float ix = L.ix[g], iy = L.iy[g], iz = L.iz[g];
+        const float ixx = L.ixx[g], ixy = L.ixy[g], iyy = L.iyy[g];
+        const float ixz = L.ixz[g], iyz = L.iyz[g];
+        const float d_u = s_du[i], d_v = s_dv[i];
+
+        const float r_data = iz + ix * d_u + iy * d_v;
+        const float psi_d = rsqrtf(r_data * r_data + kEps2);
+        const float gx = ixz + ixx * d_u + ixy * d_v;
+        const float gy = iyz + ixy * d_u + iyy * d_v;
+        const float psi_g = rsqrtf(gx * gx + gy * gy + kEps2) * P.gamma;
+
+        const float a11 = psi_d * ix * ix + psi_g * (ixx * ixx + ixy * ixy);
+        const float a12 = psi_d * ix * iy + psi_g * (ixx * ixy + ixy * iyy);
+        const float a22 = psi_d * iy * iy + psi_g * (ixy * ixy + iyy * iyy);
+        const float b_u =
+            -(psi_d * ix * iz + psi_g * (ixx * ixz + ixy * iyz));
+        const float b_v =
+            -(psi_d * iy * iz + psi_g * (ixy * ixz + iyy * iyz));
+        const float inv_du = 1.0f / (a11 + P.alpha * wsum + 1e-12f);
+        const float inv_dv = 1.0f / (a22 + P.alpha * wsum + 1e-12f);
+
+        // the neighbour sum over the BASE flow is constant across sweeps;
+        // a clamped neighbour is the pixel itself, under a zero weight
+        const int iu = gr > 0 ? i - pw : i, id = gr < h - 1 ? i + pw : i;
+        const int il = gc > 0 ? i - 1 : i, ir = gc < w - 1 ? i + 1 : i;
+        const float su_base = w_up * s_u[iu] + w_down * s_u[id] +
+                              w_left * s_u[il] + w_right * s_u[ir] -
+                              wsum * s_u[i];
+        const float sv_base = w_up * s_v[iu] + w_down * s_v[id] +
+                              w_left * s_v[il] + w_right * s_v[ir] -
+                              wsum * s_v[i];
+        s_cu[i] = (b_u + P.alpha * su_base) * inv_du;
+        s_cv[i] = (b_v + P.alpha * sv_base) * inv_dv;
+        s_a12[i] = a12;
+        s_idu[i] = inv_du;
+        s_idv[i] = inv_dv;
+      }
+    }
+    __syncthreads();
+
+    // half-sweep k (1-based) updates one colour where its neighbours are
+    // still valid: k + 1 rings inside an open side. A warp takes two rows,
+    // 16 pixels of the colour in each: the colour sits on even columns in
+    // one row and on odd ones in the next, so with an even pitch the warp's
+    // 32 stride-2 addresses fall on 32 different banks. A thread relaxes two
+    // pixels 32 columns apart and stores both afterwards, so that their
+    // loads overlap.
+    const int half = tx >> 4, lane16 = tx & 15;
+    auto relax = [&](int lr, int lc, float& out_du, float& out_dv) {
+      const int i = lr * pw + lc;
+      const int iu = i - pw, id = i + pw, il = i - 1, ir = i + 1;
+      const float awu = s_wv[i], awd = s_wv[id];
+      const float awl = s_wh[i], awr = s_wh[ir];
+      const float inv_du = s_idu[i], inv_dv = s_idv[i];
+      const float a12 = s_a12[i];
+      // neighbours are of the other colour: untouched by this half-sweep
+      const float new_du =
+          s_cu[i] - (a12 * inv_du) * s_dv[i] + awu * inv_du * s_du[iu] +
+          awd * inv_du * s_du[id] + awl * inv_du * s_du[il] +
+          awr * inv_du * s_du[ir];
+      const float new_dv =
+          s_cv[i] - (a12 * inv_dv) * new_du + awu * inv_dv * s_dv[iu] +
+          awd * inv_dv * s_dv[id] + awl * inv_dv * s_dv[il] +
+          awr * inv_dv * s_dv[ir];
+      out_du = (1.0f - P.omega) * s_du[i] + P.omega * new_du;
+      out_dv = (1.0f - P.omega) * s_dv[i] + P.omega * new_dv;
+    };
+    for (int k = 1; k <= 2 * P.sweeps; ++k) {
+      const int color = (k - 1) & 1;  // red, (r + c) even, first
+      const int ra = top ? k + 1 : 0, rb = bottom ? th - 1 - k : th;
+      const int ca = left ? k + 1 : 0, cb = right ? tw - 1 - k : tw;
+      for (int lr = ra + 2 * ty + half; lr < rb; lr += 2 * kBlockY) {
+        const int first = ca + ((r_lo + lr + c_lo + ca + color) & 1);
+        for (int lc = first + 2 * lane16; lc < cb; lc += 64) {
+          const bool two = lc + 32 < cb;
+          float du_a, dv_a, du_b = 0.0f, dv_b = 0.0f;
+          relax(lr, lc, du_a, dv_a);
+          if (two) relax(lr, lc + 32, du_b, dv_b);
+          s_du[lr * pw + lc] = du_a;
+          s_dv[lr * pw + lc] = dv_a;
+          if (two) {
+            s_du[lr * pw + lc + 32] = du_b;
+            s_dv[lr * pw + lc + 32] = dv_b;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  for (int gr = R0 + ty; gr < R1; gr += kBlockY) {
+    for (int gc = C0 + tx; gc < C1; gc += kBlockX) {
+      const int i = (gr - r_lo) * pw + gc - c_lo;
+      du_out[gr * w + gc] = s_du[i];
+      dv_out[gr * w + gc] = s_dv[i];
+    }
+  }
 }
 
-__global__ void color_kernel(const float* __restrict__ coef, float* du,
-                             float* dv, int h, int w, int color,
-                             float omega) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y * blockDim.y + threadIdx.y;
-  if (r >= h || c >= w || ((r + c) & 1) != color) return;
-  const int n = h * w;
-  const int i = r * w + c;
-  const int iu = max(r - 1, 0) * w + c, id = min(r + 1, h - 1) * w + c;
-  const int il = r * w + max(c - 1, 0), ir = r * w + min(c + 1, w - 1);
-  const float inv_du = coef[8 * n + i], inv_dv = coef[9 * n + i];
-  const float awu = coef[4 * n + i], awd = coef[5 * n + i];
-  const float awl = coef[6 * n + i], awr = coef[7 * n + i];
-  // neighbours are of the other colour: untouched by this launch
-  const float new_du = coef[0 * n + i] - coef[2 * n + i] * dv[i] +
-                       awu * inv_du * du[iu] + awd * inv_du * du[id] +
-                       awl * inv_du * du[il] + awr * inv_du * du[ir];
-  const float new_dv = coef[1 * n + i] - coef[3 * n + i] * new_du +
-                       awu * inv_dv * dv[iu] + awd * inv_dv * dv[id] +
-                       awl * inv_dv * dv[il] + awr * inv_dv * dv[ir];
-  du[i] = (1.0f - omega) * du[i] + omega * new_du;
-  dv[i] = (1.0f - omega) * dv[i] + omega * new_dv;
+// shared-memory pixels of a tile of h x w with its ring
+long long tile_pixels(int h, int w) {
+  return static_cast<long long>(h + 2) * padded_width(w + 2);
 }
+
+bool fits_one_block(int h, int w) { return tile_pixels(h, w) <= kMaxPixels; }
 
 }  // namespace
 
+// CUDA launches one call of sor_inner makes at this size, or -1 where the
+// level needs tiles and 2 * sweeps + 1 rings of halo leave a tile of kTile
+// pixels a side no interior worth computing.
+extern "C" int sor_inner_launches(int h, int w, int inner, int sweeps) {
+  if (fits_one_block(h, w)) return 1;
+  if (kTile - 2 * (2 * sweeps + 1) < kMinInterior) return -1;
+  return inner;
+}
+
+// The 10 fields are (h, w) float32. buf is (2, 2, h, w) float32 scratch of
+// any content: two (du, dv) pairs. The result is pair (inner - 1) % 2.
 extern "C" int sor_inner(const float* ix, const float* iy, const float* iz,
                          const float* ixx, const float* ixy, const float* iyy,
                          const float* ixz, const float* iyz, const float* u,
-                         const float* v, float* du, float* dv, float* coef,
-                         int h, int w, float alpha, float gamma, float omega,
-                         int inner, int sweeps, void* stream) {
-  // du, dv arrive zeroed; coef is (10, h, w) scratch:
-  // cu cv a12u a12v awu awd awl awr inv_du inv_dv
-  const Level L{ix, iy, iz, ixx, ixy, iyy, ixz, iyz, u, v, h, w};
-  const dim3 block(32, 8);
-  const dim3 grid((w + block.x - 1) / block.x, (h + block.y - 1) / block.y);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  for (int it = 0; it < inner; ++it) {
-    reweight_kernel<<<grid, block, 0, s>>>(L, du, dv, coef, alpha, gamma);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    for (int sw = 0; sw < sweeps; ++sw) {
-      for (int color = 0; color < 2; ++color) {
-        color_kernel<<<grid, block, 0, s>>>(coef, du, dv, h, w, color, omega);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return static_cast<int>(err);
-      }
-    }
+                         const float* v, float* buf, int h, int w, float alpha,
+                         float gamma, float omega, int inner, int sweeps,
+                         void* stream) {
+  if (inner < 1 || sweeps < 0 || sor_inner_launches(h, w, inner, sweeps) < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  const Level L{ix, iy, iz, ixx, ixy, iyy, ixz, iyz, u, v, h, w};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(
+      sor_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t px = static_cast<size_t>(h) * w;
+  auto du_of = [&](int pair) { return buf + 2 * px * pair; };
+  auto dv_of = [&](int pair) { return buf + 2 * px * pair + px; };
+  const dim3 block(kBlockX, kBlockY);
+
+  if (fits_one_block(h, w)) {
+    const Params P{alpha, gamma, omega, sweeps, inner, h > w ? h : w, 0};
+    const int out = (inner - 1) % 2;
+    sor_tile_kernel<<<1, block, kFields * 4 * tile_pixels(h, w), s>>>(
+        L, nullptr, nullptr, du_of(out), dv_of(out), P);
+    return static_cast<int>(cudaGetLastError());
+  }
+
+  const int halo = 2 * sweeps + 1;
+  const int interior = kTile - 2 * halo;
+  const Params P{alpha, gamma, omega, sweeps, 1, interior, halo};
+  const dim3 grid((w + interior - 1) / interior, (h + interior - 1) / interior);
+  const size_t smem = kFields * 4 * tile_pixels(kTile, kTile);
+  for (int it = 0; it < inner; ++it) {
+    const int out = it % 2, in = 1 - out;
+    sor_tile_kernel<<<grid, block, smem, s>>>(
+        L, it ? du_of(in) : nullptr, it ? dv_of(in) : nullptr, du_of(out),
+        dv_of(out), P);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }

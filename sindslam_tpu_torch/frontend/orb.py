@@ -5,10 +5,10 @@ Per level, FAST-9/16 score + priority mix + 3x3 NMS run in kernel K3
 (``cuda_kernels.fast_nms``); a cell-capped top-k spreads the keypoints.
 Levels are packed into one atlas for the IC-angle moment fields and the
 descriptor blur. BRIEF follows the reference's TPU route
-(``_brief_descriptors_mm``): kernel K4 (``cuda_kernels.extract_patches``)
-gathers the 28x28 patches, then a plain gather samples them with the
-64-angle-bin offset table and the bits are packed. Descriptors are (N, 8)
-int32 words holding the reference's uint32 bit patterns.
+(``_brief_descriptors_mm``) in one kernel, K4
+(``cuda_kernels.brief_from_patches``): it gathers each 28x28 patch, samples
+it with the 64-angle-bin offset table and packs the bits. Descriptors are
+(N, 8) int32 words holding the reference's uint32 bit patterns.
 """
 
 from __future__ import annotations
@@ -177,33 +177,27 @@ def _binned_offset_table() -> np.ndarray:
     return out
 
 
-def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
-    """(N, 256) bool -> (N, 8) int32 words (bit j of word i = bit 32 i + j),
-    the uint32 bit patterns of the reference stored as int32."""
-    lanes = bits.reshape(bits.shape[0], 8, 32).to(torch.int64)
-    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
-    words = torch.sum(lanes << shifts, -1)
-    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+@functools.lru_cache(maxsize=4)
+def _binned_offset_table_on(device: torch.device) -> torch.Tensor:
+    """The table as an int32 tensor, uploaded once per device."""
+    return torch.from_numpy(_binned_offset_table()).to(device)
 
 
 def brief_descriptors(img_blur: torch.Tensor, yx: torch.Tensor,
                       angle: torch.Tensor) -> torch.Tensor:
     """Rotation-steered 256-bit BRIEF with the angle quantized to 64 bins
-    (<= 2.9 deg): K4 patches at the clipped corners, one gather of the
-    binned table's 512 samples per keypoint, bit packing."""
+    (<= 2.9 deg): kernel K4 reads each keypoint's 28x28 window at its
+    clipped corner, tests the 256 sample pairs of its bin's table row and
+    packs the bits, in one launch."""
     h, w = img_blur.shape
-    P = _PATCH
-    c0 = P // 2
-    y0 = torch.clamp(yx[:, 0] - c0, 0, h - P).to(torch.int32)
-    x0 = torch.clamp(yx[:, 1] - c0, 0, w - P).to(torch.int32)
-    patches = ck.extract_patches(img_blur, y0, x0, patch=P)       # (N, P, P)
-    table = torch.from_numpy(_binned_offset_table()).to(img_blur.device)
+    c0 = _PATCH // 2
+    y0 = torch.clamp(yx[:, 0] - c0, 0, h - _PATCH).to(torch.int32)
+    x0 = torch.clamp(yx[:, 1] - c0, 0, w - _PATCH).to(torch.int32)
     tau = (2.0 * math.pi) / _N_ANGLE_BINS
-    bins = torch.remainder(torch.round(angle / tau).to(torch.int64),
+    bins = torch.remainder(torch.round(angle / tau).to(torch.int32),
                            _N_ANGLE_BINS)
-    samples = torch.gather(patches.reshape(patches.shape[0], P * P), 1,
-                           table[bins].long())                    # (N, 512)
-    return _pack_bits(samples[:, :256] < samples[:, 256:])
+    return ck.brief_from_patches(img_blur, y0, x0, bins,
+                                 _binned_offset_table_on(img_blur.device))
 
 
 def _border_mask(score: torch.Tensor, margin: int) -> torch.Tensor:
@@ -227,6 +221,14 @@ def _atlas_layout(height: int, width: int, n_levels: int, scale: float):
     return shapes, offs, y - _ATLAS_GAP
 
 
+@functools.lru_cache(maxsize=8)
+def _atlas_offsets_on(offs: Tuple[int, ...], device: torch.device
+                      ) -> torch.Tensor:
+    """(L, 1, 2) int64 (y-offset, 0) of each level in the atlas, uploaded
+    once per layout and device."""
+    return torch.tensor([[[y, 0]] for y in offs], device=device)
+
+
 def extract_orb(gray: torch.Tensor, dyna_mask: torch.Tensor, cfg: ORBConfig,
                 height: int = 480, width: int = 640) -> OrbFeatures:
     """ORB features of an (H, W) grayscale image, erasing keypoints on
@@ -236,6 +238,7 @@ def extract_orb(gray: torch.Tensor, dyna_mask: torch.Tensor, cfg: ORBConfig,
                                           cfg.scale_factor)
     quotas = level_quotas(cfg.n_features, cfg.n_levels, cfg.scale_factor)
     dev = gray.device
+    level_offs = _atlas_offsets_on(tuple(offs), dev)
     g = gray.to(torch.float32)
     atlas = torch.zeros((atlas_h, width), dtype=torch.float32, device=dev)
     level_img = g
@@ -265,7 +268,7 @@ def extract_orb(gray: torch.Tensor, dyna_mask: torch.Tensor, cfg: ORBConfig,
         feats_xy.append(xy2[keep])
         feats_lvl.append(torch.full((quota,), l, dtype=torch.int32, device=dev))
         feats_score.append(sc2[keep])
-        yx_atlas.append(yx2[keep] + torch.tensor([[y0, 0]], device=dev))
+        yx_atlas.append(yx2[keep] + level_offs[l])
 
     yx_all = torch.cat(yx_atlas)
     flat_idx = yx_all[:, 0] * width + yx_all[:, 1]

@@ -28,12 +28,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# argtypes of every C entry point, by source
+# every C entry point: symbol -> (source, argtypes); all return an int
 SIGNATURES = {
-    "sor_inner": ("sor_inner", [_P] * 13 + [_I, _I, _F, _F, _F, _I, _I, _P]),
+    "sor_inner": ("sor_inner",
+                  [_P] * 11 + [_I, _I, _F, _F, _F, _I, _I, _P]),
+    "sor_inner_launches": ("sor_inner", [_I, _I, _I, _I]),
     "cc_labels": ("cc_labels", [_P] * 7 + [_I, _I, _I, _P]),
     "fast_nms": ("fast_nms", [_P] * 3 + [_I, _I, _F, _F, _P]),
-    "extract_patches": ("extract_patches", [_P] * 4 + [_I, _I, _I, _I, _P]),
+    "extract_patches": ("extract_patches",
+                        [_P] * 4 + [_I, _I, _I, _I, _P]),
+    "brief_from_patches": ("extract_patches", [_P] * 6 + [_I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -92,15 +96,15 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
     return logs
 
 
-def load(name: str):
-    """The ctypes entry point of kernel source ``name``, built if needed."""
+def load(symbol: str):
+    """The ctypes entry point ``symbol``, its source built if needed."""
     with _lock:
-        fn = _loaded.get(name)
+        fn = _loaded.get(symbol)
         if fn is None:
-            build([name])
-            symbol, argtypes = SIGNATURES[name]
-            fn = getattr(ctypes.CDLL(_target(name)), symbol)
+            source, argtypes = SIGNATURES[symbol]
+            build([source])
+            fn = getattr(ctypes.CDLL(_target(source)), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _loaded[name] = fn
+            _loaded[symbol] = fn
     return fn

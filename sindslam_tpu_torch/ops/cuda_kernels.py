@@ -1,29 +1,32 @@
-"""The four hand-written Hopper kernels of the port, each beside its plain
+"""The hand-written Hopper kernels of the port, each beside its plain
 PyTorch version.
 
 Counterpart of ``sindslam_tpu/ops/pallas_kernels.py``; every
 ``pl.pallas_call`` there has a kernel here:
 
-==================  =============================  =====================
-wrapper             TPU kernel it replaces          CUDA source
-==================  =============================  =====================
-``sor_inner``       ``sor_inner_pallas``            ``csrc/sor_inner.cu``
-``cc_labels``       ``cc_labels_pallas``            ``csrc/cc_labels.cu``
-``fast_nms``        ``fast_nms_pallas``             ``csrc/fast_nms.cu``
-``extract_patches`` ``extract_patches_pallas``      ``csrc/extract_patches.cu``
-==================  =============================  =====================
+======================  ==========================  =========================
+wrapper                 TPU kernel it replaces      CUDA source
+======================  ==========================  =========================
+``sor_inner``           ``sor_inner_pallas``        ``csrc/sor_inner.cu``
+``cc_labels``           ``cc_labels_pallas``        ``csrc/cc_labels.cu``
+``fast_nms``            ``fast_nms_pallas``         ``csrc/fast_nms.cu``
+``extract_patches``     ``extract_patches_pallas``  ``csrc/extract_patches.cu``
+``brief_from_patches``  the same, fused with the    ``csrc/extract_patches.cu``
+                        BRIEF test that reads it
+======================  ==========================  =========================
 
 Each wrapper takes the plain version for a tensor on the CPU and launches
 its CUDA kernel for a CUDA tensor (on ``torch.cuda.current_stream()``),
 raising when the launch reports an error; there is no fallback. What bounds
 each kernel on the H100 and what its design does about it is written at the
 top of its source. ``LAUNCHES`` counts the wrapper calls that launched a
-kernel (one call may issue several CUDA launches: see each source).
+kernel; one call may make several CUDA launches (see each source), which
+``SOR_INNER_CUDA_LAUNCHES`` counts for K1, per level shape.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,12 +35,17 @@ from sindslam_tpu_torch.ops import _build
 
 _EPS2 = 1e-6
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in _build.KERNEL_SOURCES}
+LAUNCHES: Dict[str, int] = {name: 0 for name in (
+    "sor_inner", "cc_labels", "fast_nms", "extract_patches",
+    "brief_from_patches")}
+# (h, w) -> [wrapper calls, CUDA launches they made]
+SOR_INNER_CUDA_LAUNCHES: Dict[Tuple[int, int], List[int]] = {}
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    SOR_INNER_CUDA_LAUNCHES.clear()
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -170,12 +178,21 @@ def sor_inner(ix, iy, iz, ixx, ixy, iyy, ixz, iyz, u, v, *, alpha: float,
     h, w = ix.shape
     for i, t in enumerate(fields):
         _check(t, f"sor_inner field {i}", torch.float32, (h, w))
-    du = torch.zeros_like(ix)
-    dv = torch.zeros_like(ix)
-    coef = torch.empty((10, h, w), dtype=torch.float32, device=ix.device)
-    ptrs = [t.data_ptr() for t in (*fields, du, dv, coef)]
+    if inner < 1:
+        return torch.zeros_like(ix), torch.zeros_like(ix)
+    n_cuda = _build.load("sor_inner_launches")(h, w, int(inner), int(sweeps))
+    if n_cuda < 0:
+        raise ValueError(f"sor_inner: {sweeps} sweeps need a wider halo than "
+                         f"a tile of a {h}x{w} level has")
+    # two (du, dv) pairs: re-weighting k reads one and writes the other
+    buf = torch.empty((2, 2, h, w), dtype=torch.float32, device=ix.device)
+    ptrs = [t.data_ptr() for t in (*fields, buf)]
     _launch("sor_inner", ix.device, *ptrs, h, w, float(alpha), float(gamma),
             float(omega), int(inner), int(sweeps))
+    per_level = SOR_INNER_CUDA_LAUNCHES.setdefault((h, w), [0, 0])
+    per_level[0] += 1
+    per_level[1] += n_cuda
+    du, dv = buf[(inner - 1) % 2]
     return du, dv
 
 
@@ -295,6 +312,9 @@ def fast_nms(img: torch.Tensor, min_th: float, ini_th: float) -> torch.Tensor:
 
 # ---------------------------------------------------------------- K4 -------
 
+_BRIEF_PATCH = 28   # the window side the BRIEF sample table addresses
+
+
 def extract_patches_plain(img: torch.Tensor, y0: torch.Tensor,
                           x0: torch.Tensor, patch: int = 28) -> torch.Tensor:
     """(N, patch, patch) windows of ``img`` at top-left corners clamped to
@@ -326,4 +346,59 @@ def extract_patches(img: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
         return out
     ptrs = [t.data_ptr() for t in (img, y0, x0, out)]
     _launch("extract_patches", img.device, *ptrs, n, h, w, int(patch))
+    return out
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(N, 256) bool -> (N, 8) int32 words (bit j of word i = bit 32 i + j),
+    the uint32 bit patterns of the reference stored as int32."""
+    lanes = bits.reshape(bits.shape[0], 8, 32).to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    words = torch.sum(lanes << shifts, -1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
+def brief_from_patches_plain(img: torch.Tensor, y0: torch.Tensor,
+                             x0: torch.Tensor, bins: torch.Tensor,
+                             table: torch.Tensor) -> torch.Tensor:
+    """The 28x28 windows, one gather of each keypoint's 512 table samples,
+    the 256 ``sample j < sample 256 + j`` tests, packed."""
+    patches = extract_patches_plain(img, y0, x0, _BRIEF_PATCH)
+    samples = torch.gather(patches.flatten(1), 1,
+                           table[bins.long()].long())             # (N, 512)
+    return pack_bits(samples[:, :256] < samples[:, 256:])
+
+
+def brief_from_patches(img: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
+                       bins: torch.Tensor, table: torch.Tensor
+                       ) -> torch.Tensor:
+    """256-bit BRIEF descriptors, (N, 8) int32 words, of the 28x28 windows
+    of an (h, w) f32 image at (N,) corners: keypoint n is tested at the
+    window-linear sample indices ``table[bins[n]]`` (a (B, 512) int32 table,
+    samples j and 256 + j making bit j). Kernel: ``csrc/extract_patches.cu``;
+    the windows stay in shared memory."""
+    if _on_cpu(img, y0, x0, bins, table):
+        return brief_from_patches_plain(img, y0, x0, bins, table)
+    h, w = img.shape
+    n = y0.shape[0]
+    _check(img, "brief_from_patches img", torch.float32)
+    _check(table, "brief_from_patches table", torch.int32,
+           (table.shape[0], 512))
+    y0 = y0.to(torch.int32).contiguous()
+    x0 = x0.to(torch.int32).contiguous()
+    bins = bins.to(torch.int32).contiguous()
+    for name, t in (("y0", y0), ("x0", x0), ("bins", bins)):
+        _check(t, f"brief_from_patches {name}", torch.int32, (n,))
+    if h < _BRIEF_PATCH or w < _BRIEF_PATCH:
+        raise ValueError(f"brief_from_patches: image {h}x{w} smaller than "
+                         f"the {_BRIEF_PATCH}x{_BRIEF_PATCH} window")
+    out = torch.empty((n, 8), dtype=torch.int32, device=img.device)
+    if n == 0:
+        return out
+    lo, hi = torch.stack(torch.aminmax(bins)).tolist()
+    if lo < 0 or hi >= table.shape[0]:
+        raise ValueError(f"brief_from_patches: bins span [{lo}, {hi}], the "
+                         f"table has {table.shape[0]} rows")
+    ptrs = [t.data_ptr() for t in (img, y0, x0, bins, table, out)]
+    _launch("brief_from_patches", img.device, *ptrs, n, h, w)
     return out

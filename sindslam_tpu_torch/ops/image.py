@@ -76,7 +76,6 @@ def block_or2(x: torch.Tensor) -> torch.Tensor:
     return p[::2, ::2] | p[1::2, ::2] | p[::2, 1::2] | p[1::2, 1::2]
 
 
-@functools.lru_cache(maxsize=64)
 def _resize_weights_np(n_in: int, n_out: int) -> np.ndarray:
     """(n_in, n_out) float32 weight matrix of ``jax.image.resize(method=
     "linear")`` along one axis: a triangle kernel stretched by the
@@ -100,7 +99,10 @@ def _resize_weights_np(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[None, :], weights, f32(0)).astype(f32)
 
 
-def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+@functools.lru_cache(maxsize=256)
+def _resize_weights(n_in: int, n_out: int, device: torch.device
+                    ) -> torch.Tensor:
+    """The weight matrix as a tensor, uploaded once per shape and device."""
     return torch.from_numpy(_resize_weights_np(n_in, n_out)).to(device)
 
 

@@ -392,3 +392,18 @@ def test_depth_ur_matches_jax(frames, edge_thresh):
     zt, ut = t_frame._depth_ur(_t(xy), _t(d), tcam)
     np.testing.assert_array_equal(zt.numpy(), np.asarray(zj))
     np.testing.assert_allclose(ut.numpy(), np.asarray(uj), atol=1e-5, rtol=0)
+
+
+def test_constant_tensors_are_made_once_per_device():
+    """The resize weights, the BRIEF table and the atlas offsets are built
+    and uploaded on first use, then served from a cache."""
+    cpu = torch.device("cpu")
+    wm = t_im._resize_weights(10, 7, cpu)
+    assert wm is t_im._resize_weights(10, 7, cpu)
+    np.testing.assert_array_equal(wm.numpy(), t_im._resize_weights_np(10, 7))
+    table = t_orb._binned_offset_table_on(cpu)
+    assert table is t_orb._binned_offset_table_on(cpu)
+    assert table.dtype == torch.int32 and tuple(table.shape) == (64, 512)
+    offs = t_orb._atlas_offsets_on((0, 128, 235), cpu)
+    assert offs is t_orb._atlas_offsets_on((0, 128, 235), cpu)
+    assert offs.tolist() == [[[0, 0]], [[128, 0]], [[235, 0]]]
