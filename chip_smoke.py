@@ -11,8 +11,14 @@
    they are not trivial, then holds every kernel against its plain PyTorch
    version on those inputs on the card and times both with CUDA events: K1
    at every pyramid level the main path solved (both of its regimes, with
-   its CUDA launches per call), K2 also on a serpentine at its sweep
-   budget, the fused BRIEF kernel bit for bit and beside the chain of
+   its CUDA launches per call), K2 on both of its main-path calls (as
+   contiguous tensors and as the strided views the main path hands over,
+   with its CUDA launches per call and the sweeps its inputs need to reach
+   their fixed point), at budgets under and between multiples of its sweeps
+   per launch, on a serpentine at its sweep budget and on serpentines that
+   fill its two main-path shapes (no early exit), K3 on the atlas of
+   all pyramid levels in one call, level by level against the call on each
+   level alone, the fused BRIEF kernel bit for bit and beside the chain of
    PyTorch calls it replaces, and the standalone patch gather on the same
    corners beside the one PyTorch indexing call that computes it;
 4. checks the CUDA path against the port's CPU path on a small input;
@@ -87,10 +93,13 @@ def time_ms(torch, fn, reps: int) -> float:
 
 
 def device_us(torch, fn, kernel: str, reps: int = 5):
-    """(device microseconds, launches) of the CUDA kernels whose name holds
-    ``kernel`` in one call of ``fn``, a mean over ``reps`` calls under
-    ``torch.profiler``: what the card spends, without the host's share of a
-    CUDA-event time."""
+    """(device microseconds, launches, union microseconds) of the CUDA
+    kernels whose name holds ``kernel`` in one call of ``fn``, a mean over
+    ``reps`` calls under ``torch.profiler``: what the card spends, without
+    the host's share of a CUDA-event time. The first is the sum of the
+    launches' own durations, the last the length of the union of their
+    intervals, which is less where launches overlap (K2's do: each starts
+    while the one before it still runs, and its duration counts the wait)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -99,10 +108,11 @@ def device_us(torch, fn, kernel: str, reps: int = 5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    spans = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.name]
-    return sum(spans) / reps, len(spans) / reps
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and kernel in e.name]
+    return (sum(e.time_range.elapsed_us() for e in events) / reps,
+            len(events) / reps, busy_us(events) / reps)
 
 
 def device_us_expecting(torch, fn, kernel: str, expected: int, what: str):
@@ -112,15 +122,15 @@ def device_us_expecting(torch, fn, kernel: str, expected: int, what: str):
     taken again (three times at most) and then only reported, while a
     reading with more launches than counted fails."""
     for _ in range(3):
-        us, n = device_us(torch, fn, kernel)
+        us, n, union = device_us(torch, fn, kernel)
         if n == expected:
-            return us, n
+            return us, n, union
     check(n < expected, f"{what}: the trace shows {n} {kernel} launches a "
                         f"call, the wrapper counted {expected}")
     print(f"{what}: the trace shows {n} of {expected} {kernel} launches a "
           f"call in three readings (events dropped); device time is of "
           f"those seen", flush=True)
-    return us, n
+    return us, n, union
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -143,7 +153,8 @@ def busy_us(events) -> float:
 
 def nontrivial(name, args) -> bool:
     """Whether a recorded call has work that could show a wrong kernel:
-    K1 a non-zero temporal derivative, K2 a non-empty mask."""
+    K1 a non-zero temporal derivative, K2 a non-empty mask (its first
+    argument, the seed, is None on the main path)."""
     if name == "sor_inner":
         return bool(args[2].any())
     if name == "cc_labels":
@@ -180,13 +191,15 @@ class Recorder:
                 key = f"cc_labels/{kw['n_sweeps']}"
             elif name == "sor_inner":
                 key = "sor_inner/%dx%d" % tuple(args[0].shape)
-            size = args[0].numel()
+            size = args[1 if name == "cc_labels" else 0].numel()
             if name == "brief_from_patches":
                 size += args[1].numel()
             rank = (nontrivial(name, args), size)
             if key not in self.calls or rank >= self.calls[key][0]:
-                clone = [a.clone() if isinstance(a, self.torch.Tensor) else a
-                         for a in args]
+                # one clone a tensor: K2 is told "labels is mask" by identity
+                memo = {id(a): a.clone() for a in args
+                        if isinstance(a, self.torch.Tensor)}
+                clone = [memo.get(id(a), a) for a in args]
                 self.calls[key] = (rank, clone, dict(kw))
             return orig(*args, **kw)
         return rec
@@ -296,7 +309,7 @@ def main() -> int:
         check(ck.SOR_INNER_CUDA_LAUNCHES[(h, w)] == [1, n_cuda],
               f"{key}: the wrapper issued "
               f"{ck.SOR_INNER_CUDA_LAUNCHES[(h, w)]}, {n_cuda} planned")
-        dev_t, dev_n = device_us_expecting(
+        dev_t, dev_n, _union = device_us_expecting(
             torch, lambda: rec.saved["sor_inner"](*args, **kw), "sor_tile",
             n_cuda, key)
         print(f"{key} case: max |du|,|dv| {du_max:.4g}, max |iz| "
@@ -320,17 +333,92 @@ def main() -> int:
         else:
             results["sor_inner"]["err"] = max(results["sor_inner"]["err"], err)
 
-    # K2 cc_labels: both main-path calls, plus the serpentine at its budget
+    # K2 cc_labels: both main-path calls, budgets that leave a remainder,
+    # the serpentine at its budget
+    k2_plan = _build.load("cc_labels_launches")
+    k2_kern = rec.saved["cc_labels"]
+
+    def strided(t):
+        """``t`` as every second row and column of a tensor twice its size,
+        the kind of view half-resolution subsampling hands to K2."""
+        wide = torch.zeros((2 * t.shape[0], 2 * t.shape[1]), dtype=t.dtype,
+                           device=t.device)
+        wide[::2, ::2] = t
+        return wide[::2, ::2]
+
+    def sweeps_to_fixed_point(mask, labels, budget):
+        """The least n at which n sweeps give what ``budget`` sweeps give,
+        or None where one more sweep than the budget still changes labels
+        (labels only fall, so the results are monotone in n)."""
+        full = k2_kern(None, mask, labels, n_sweeps=budget)
+        if not torch.equal(full, k2_kern(None, mask, labels,
+                                         n_sweeps=budget + 1)):
+            return None
+        lo, hi = 0, budget
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if torch.equal(k2_kern(None, mask, labels, n_sweeps=mid), full):
+                hi = mid
+            else:
+                lo = mid + 1
+        return lo
+
     errs, k2 = [], {}
     for key in ("cc_labels/768", "cc_labels/256"):
         args, kw, err, ms, pms, (ref,) = compare("cc_labels", key, 0, 0, 2)
-        n_in, n_comp = int(args[1].sum()), len(torch.unique(ref[ref > 0]))
-        print(f"{key} case: {n_in} pixels in the mask, {n_comp} components",
-              flush=True)
+        seed, mask, labels = args
+        n_sw = kw["n_sweeps"]
+        h, w = mask.shape
+        check(seed is None, f"{key}: the main path computes a seed itself")
+        n_in, n_comp = int(mask.sum()), len(torch.unique(ref[ref > 0]))
+        print(f"{key} case: {n_in} pixels in the mask, {n_comp} components, "
+              f"mask {mask.dtype}, labels "
+              f"{'the mask' if labels is mask else labels.dtype}", flush=True)
         check(n_in > 0 and n_comp < n_in,
               f"{key} case is trivial ({n_in} pixels, {n_comp} components)")
+        # the same input as strided views, and with the seed and the casts
+        # the earlier wrapper took
+        mask_v = strided(mask)
+        labels_v = mask_v if labels is mask else strided(labels)
+        check(torch.equal(k2_kern(None, mask_v, labels_v, n_sweeps=n_sw), ref),
+              f"{key}: strided views disagree with plain")
+        idx1 = torch.arange(h * w, dtype=torch.int32, device=dev
+                            ).reshape(h, w) + 1
+        check(torch.equal(k2_kern(torch.where(mask, idx1, 0),
+                                  mask.to(torch.int32),
+                                  labels.to(torch.int32), n_sweeps=n_sw), ref),
+              f"{key}: explicit seed and int32 mask disagree with plain")
+        n_cuda = k2_plan(h, w, n_sw)
+        ck.reset_launch_counts()
+        k2_kern(*args, **kw)
+        check(ck.CC_LABELS_CUDA_LAUNCHES[(h, w, n_sw)] == [1, n_cuda],
+              f"{key}: the wrapper made "
+              f"{ck.CC_LABELS_CUDA_LAUNCHES[(h, w, n_sw)]}, {n_cuda} planned")
+        dev_sum, dev_n, dev_t = device_us_expecting(
+            torch, lambda: k2_kern(*args, **kw), "cc_tile_kernel", n_cuda, key)
+        fixed = sweeps_to_fixed_point(mask, labels, n_sw)
+        print(f"{key}: {n_cuda} CUDA launches a call, {dev_t:.1f} us of "
+              f"device time as the union of {dev_n:.0f} overlapping launches "
+              f"({dev_sum:.1f} us as the sum of their durations, which "
+              f"counts their waiting); fixed point after "
+              f"{'more than ' + str(n_sw) if fixed is None else fixed} "
+              f"sweeps of the {n_sw} allowed", flush=True)
         errs.append(err)
-        k2[key] = (args, kw, ms, pms)
+        # per pixel and sweep: 4 masked neighbour mins + keep/select ~10
+        # ops, over the sweeps this input needs; the mask and the cluster
+        # image read once, the labels written once
+        needed = n_sw if fixed is None else fixed
+        n_bytes = h * w * (mask.element_size() + 4
+                           + (0 if labels is mask else labels.element_size()))
+        k2[key] = dict(args=args, ms=ms, plain_ms=pms, dev_us=dev_t,
+                       n_cuda=n_cuda, fixed=fixed,
+                       bound=bound_ms(n_bytes, 10 * h * w * max(needed, 1)),
+                       bound_budget=bound_ms(n_bytes, 10 * h * w * n_sw))
+    _seed0, mask, labels = k2["cc_labels/768"]["args"]
+    for n_sw in (5, 37):    # under one launch's sweeps, and a remainder
+        check(torch.equal(k2_kern(None, mask, labels, n_sweeps=n_sw),
+                          ck.cc_labels_plain(None, mask, labels, n_sw)),
+              f"cc_labels at {n_sw} sweeps disagrees with plain")
     hs, ws = 24, 64
     snake = torch.zeros((hs, ws), dtype=torch.bool, device=dev)
     for r in range(0, hs, 2):
@@ -340,31 +428,105 @@ def main() -> int:
     seed = torch.where(snake, torch.arange(hs * ws, dtype=torch.int32,
                                            device=dev).reshape(hs, ws) + 1, 0)
     for n_sw in (780, 700):
-        got = rec.saved["cc_labels"](seed, snake, snake, n_sweeps=n_sw)
+        got = k2_kern(seed, snake, snake, n_sweeps=n_sw)
         ref = ck.cc_labels_plain(seed, snake, snake, n_sweeps=n_sw)
         check(torch.equal(got, ref), f"cc_labels serpentine at {n_sw} sweeps")
+        check(torch.equal(k2_kern(None, snake, snake, n_sweeps=n_sw), ref),
+              f"cc_labels serpentine at {n_sw} sweeps, seed left to the kernel")
         n_ids = len(torch.unique(got[snake]))
         check((n_ids == 1) == (n_sw == 780),
               f"serpentine at {n_sw} sweeps: {n_ids} components")
-    print("cc_labels serpentine: one component at 780 sweeps, split at 700, "
+    print("cc_labels: kernel == plain at 5 and 37 sweeps on the 768-sweep "
+          "input; serpentine: one component at 780 sweeps, split at 700, "
           "kernel == plain in both", flush=True)
-    args, kw, ms, pms = k2["cc_labels/768"]
-    h, w = args[0].shape
-    # per pixel and sweep: 4 masked neighbour mins + keep/select ~10 ops
-    results["cc_labels"] = dict(err=max(errs), ms=ms, plain_ms=pms,
-                                shape=(h, w, kw["n_sweeps"]),
-                                bound=bound_ms(4 * h * w * 4,
-                                               10 * h * w * kw["n_sweeps"]),
-                                ms_256=k2["cc_labels/256"][2],
-                                plain_ms_256=k2["cc_labels/256"][3])
+    # a serpentine that fills each main-path shape: every sweep of the
+    # budget changes a label, so no early exit cuts the work
+    for key in ("cc_labels/768", "cc_labels/256"):
+        h, w = k2[key]["args"][1].shape
+        n_sw = int(key.split("/")[1])
+        full = torch.zeros((h, w), dtype=torch.bool, device=dev)
+        full[::2] = True
+        full[1::4, w - 1] = True
+        full[3::4, 0] = True
+        check(torch.equal(k2_kern(None, full, full, n_sweeps=n_sw),
+                          ck.cc_labels_plain(None, full, full, n_sw)),
+              f"cc_labels serpentine {h}x{w} at {n_sw} sweeps")
+        ms = time_ms(torch, lambda: k2_kern(None, full, full, n_sweeps=n_sw),
+                     20)
+        n_cuda = k2_plan(h, w, n_sw)
+        dev_sum, dev_n, dev_t = device_us_expecting(
+            torch, lambda: k2_kern(None, full, full, n_sweeps=n_sw),
+            "cc_tile_kernel", n_cuda, f"serpentine {h}x{w}")
+        print(f"cc_labels serpentine {h}x{w}, {n_sw} sweeps, none idle: "
+              f"{ms:.4f} ms, {dev_t:.1f} us of device time as the union of "
+              f"{dev_n:.0f} launches ({dev_t / max(dev_n, 1):.2f} us a launch "
+              f"of {n_sw // n_cuda} sweeps; {dev_sum:.1f} us as the sum of "
+              f"their durations)", flush=True)
+    big_call = k2["cc_labels/768"]
+    results["cc_labels"] = dict(
+        err=max(errs), ms=big_call["ms"], plain_ms=big_call["plain_ms"],
+        shape=(*big_call["args"][1].shape, 768), bound=big_call["bound"])
 
-    # K3 fast_nms on pyramid level 0
-    args, kw, err, ms, pms, _ = compare("fast_nms", "fast_nms", 0, 0, 5)
-    h, w = args[0].shape
-    # per pixel: 16 starts x (2 + 8 x 4) min/sub, 32 max, threshold/priority,
-    # 8-neighbour NMS max ~ 600 ops
-    results["fast_nms"] = dict(err=err, ms=ms, plain_ms=pms, shape=(h, w),
-                               bound=bound_ms(2 * h * w * 4, 600 * h * w))
+    # K3 fast_nms: every pyramid level in one call on the atlas
+    k3_kern = rec.saved["fast_nms"]
+    args, kw, err, ms, pms, (ref,) = compare("fast_nms", "fast_nms", 0, 0, 3)
+    atlas, layout = args[0], kw["levels"]
+    check(len(layout) == cfg.orb.n_levels and layout[0] == (0, 480, 640),
+          f"fast_nms was not given the 8-level atlas: {layout}")
+    got = k3_kern(*args, **kw)
+    outside = torch.ones_like(atlas, dtype=torch.bool)
+    kept = []
+    for y0, lh, lw in layout:
+        level = atlas[y0:y0 + lh, :lw].contiguous()
+        alone = k3_kern(level, *args[1:])
+        check(torch.equal(alone, ck.fast_nms_plain(level, *args[1:])),
+              f"fast_nms on the level at row {y0} alone disagrees with plain")
+        check(torch.equal(got[y0:y0 + lh, :lw], alone),
+              f"fast_nms: the level at row {y0} differs from the call on the "
+              f"level alone")
+        for r in (0, lh - 1):    # level borders, not atlas borders
+            check(torch.equal(got[y0 + r, :lw], alone[r])
+                  and torch.equal(ref[y0 + r, :lw], alone[r]),
+                  f"fast_nms: row {r} of the level at row {y0}")
+        kept.append((int((alone > 0).sum()),
+                     int((alone[[0, lh - 1]] > 0).sum())))
+        outside[y0:y0 + lh, :lw] = False
+    check(not bool(got[outside].any()), "fast_nms wrote outside the levels")
+    check(all(n > 0 for n, _edge in kept),
+          f"fast_nms case is trivial: corners kept per level {kept}")
+    print(f"fast_nms atlas {tuple(atlas.shape)}: corners kept per level "
+          f"(of them on the level's first and last row) {kept}; each level "
+          f"== the call on the level alone == plain", flush=True)
+    ck.reset_launch_counts()
+    k3_kern(*args, **kw)
+    check(ck.LAUNCHES["fast_nms"] == 1, "fast_nms: one call, one count")
+    k3_us, k3_n, _union = device_us_expecting(
+        torch, lambda: k3_kern(*args, **kw), "fast_nms_kernel", 1, "fast_nms")
+    level0 = atlas[:480, :640].contiguous()
+    ms0 = time_ms(torch, lambda: k3_kern(level0, *args[1:]), 20)
+    plain0 = time_ms(torch, lambda: ck.fast_nms_plain(level0, *args[1:]), 3)
+    us0, _n, _union = device_us_expecting(
+        torch, lambda: k3_kern(level0, *args[1:]), "fast_nms_kernel", 1,
+        "fast_nms level 0")
+    n_px = sum(lh * lw for _y0, lh, lw in layout)
+    # what the function needs a pixel: 16 ring differences; minima and maxima
+    # over the 16 runs of 9 by doubling (runs of 2, 4, 8, 9), 64 min and 64
+    # max; the best start, 16 max and 16 min; negate and join the polarities,
+    # threshold and priority, 7; 8 neighbour maxima, compare and select, 10.
+    # Bytes: the levels' pixels read, the whole output written.
+    fast_ops = 16 + 64 + 64 + 32 + 7 + 10
+    results["fast_nms"] = dict(err=err, ms=ms, plain_ms=pms,
+                               shape=tuple(atlas.shape),
+                               bound=bound_ms((n_px + atlas.numel()) * 4,
+                                              fast_ops * n_px))
+    bound0 = bound_ms(2 * 480 * 640 * 4, fast_ops * 480 * 640)
+    print(f"fast_nms: atlas call {ms:.4f} ms, {k3_us:.1f} us of device time "
+          f"in {k3_n:.0f} launch, {n_px} pixels in {len(layout)} levels, "
+          f"bound {results['fast_nms']['bound'][0]:.5f} ms "
+          f"({results['fast_nms']['bound'][1]}, {fast_ops} operations a "
+          f"pixel); level 0 alone (480x640) {ms0:.4f} ms, {us0:.1f} us of "
+          f"device time, plain {plain0:.4f} ms, bound {bound0[0]:.5f} ms "
+          f"({bound0[1]})", flush=True)
 
     # K4 fused with the BRIEF test: all keypoints of a frame on the blurred
     # atlas, bit for bit
@@ -405,7 +567,7 @@ def main() -> int:
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
     n_counted = ck.LAUNCHES["brief_from_patches"]
-    brief_us, n_brief = device_us_expecting(
+    brief_us, n_brief, _union = device_us_expecting(
         torch, lambda: rec.saved["brief_from_patches"](*args), "brief_kernel",
         1, "brief_from_patches")
     print(f"brief_from_patches call: {n_counted} kernel launch by the "
@@ -424,10 +586,10 @@ def main() -> int:
     check(torch.equal(windows[yl, xl], ref),
           "unfold-and-index gather differs from extract_patches")
     lib_ms = time_ms(torch, lambda: windows[yl, xl], 20)
-    dev_t, _n = device_us(
+    dev_t, _n, _union = device_us(
         torch, lambda: rec.saved["extract_patches"](img, y0, x0),
         "patches_kernel")
-    lib_t, _n = device_us(torch, lambda: windows[yl, xl], "index")
+    lib_t, _n, _union = device_us(torch, lambda: windows[yl, xl], "index")
     print(f"extract_patches library call (unfold + index): {lib_ms:.4f} ms; "
           f"device time kernel {dev_t:.1f} us, library call {lib_t:.1f} us",
           flush=True)
@@ -503,6 +665,18 @@ def main() -> int:
     for name in MAIN_PATH:
         check(counts[name] > 0,
               f"kernel {name} never launched on the main path")
+    check(counts["fast_nms"] == N_FRAMES,
+          f"fast_nms launched {counts['fast_nms']} times in {N_FRAMES} frames")
+    k2_shapes = {key: tuple(c) for key, c in ck.CC_LABELS_CUDA_LAUNCHES.items()}
+    check(set(k2_shapes) == {(240, 320, 768), (120, 160, 256)},
+          f"cc_labels ran at {sorted(k2_shapes)}")
+    for (h, w, n_sw), (calls, n_cuda) in k2_shapes.items():
+        check(calls == N_FRAMES and n_cuda == calls * k2_plan(h, w, n_sw),
+              f"cc_labels at {(h, w, n_sw)}: {calls} calls, {n_cuda} CUDA "
+              f"launches, {k2_plan(h, w, n_sw)} a call planned")
+    k2_cuda = sum(n for _c, n in k2_shapes.values())
+    check(k2_cuda <= 80 * N_FRAMES,
+          f"cc_labels made {k2_cuda / N_FRAMES:.1f} CUDA launches a frame")
     k1_levels = {hw: tuple(c) for hw, c in ck.SOR_INNER_CUDA_LAUNCHES.items()}
     check(set(k1_levels) == set(levels),
           f"sor_inner ran at {sorted(k1_levels)}, not at every level")
@@ -525,9 +699,19 @@ def main() -> int:
               f"({counts[name] / N_FRAMES:.2f}/frame), kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "
               f"({r['bound'][1]}) at {r['shape']}", flush=True)
-    print(f"cc_labels at (120, 160, 256): kernel "
-          f"{results['cc_labels']['ms_256']:.4f} ms plain "
-          f"{results['cc_labels']['plain_ms_256']:.4f} ms")
+    for key, call in k2.items():
+        h, w = call["args"][1].shape
+        n_sw = int(key.split("/")[1])
+        print(f"cc_labels at {(h, w, n_sw)}: kernel {call['ms']:.4f} ms "
+              f"({call['dev_us']:.1f} us on the device, union of its "
+              f"launches), plain "
+              f"{call['plain_ms']:.4f} ms, bound {call['bound'][0]:.5f} ms "
+              f"for the sweeps its input needs ({call['bound_budget'][0]:.5f}"
+              f" ms for all {n_sw}), {k2_shapes[(h, w, n_sw)][1]} CUDA "
+              f"launches in {k2_shapes[(h, w, n_sw)][0]} calls")
+    print(f"cc_labels in all: {k2_cuda} CUDA launches in "
+          f"{counts['cc_labels']} calls, {k2_cuda / N_FRAMES:.1f} a frame",
+          flush=True)
     for hw in levels:
         calls, n_cuda = k1_levels[hw]
         print(f"sor_inner at {hw}: {calls} calls, {n_cuda} CUDA launches "

@@ -78,10 +78,7 @@ def fuse_masks(low_mask: torch.Tensor, high_mask: torch.Tensor,
     high_2 = im.block_or2(high_in)
     high_h = im.block_or2(high_2)
     qh, qw = high_h.shape
-    idx0 = torch.arange(qh * qw, dtype=torch.int32, device=high_h.device
-                        ).reshape(qh, qw) + 1
-    comp_h = ck.cc_labels(torch.where(high_h, idx0, 0), high_h, high_h,
-                          n_sweeps=_CC_SWEEPS)
+    comp_h = ck.cc_labels(None, high_h, high_h, n_sweeps=_CC_SWEEPS)
     comp_flat_h = comp_h.reshape(-1)
     n_seg = qh * qw + 1
     area_c = _segment_sum(high_h.reshape(-1), comp_flat_h, n_seg)

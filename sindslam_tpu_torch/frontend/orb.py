@@ -1,10 +1,11 @@
 """ORB extraction (pyramid FAST + IC angle + rotated BRIEF), PyTorch port of
 ``sindslam_tpu/frontend/orb.py`` (reference ``ORBextractor``).
 
-Per level, FAST-9/16 score + priority mix + 3x3 NMS run in kernel K3
-(``cuda_kernels.fast_nms``); a cell-capped top-k spreads the keypoints.
-Levels are packed into one atlas for the IC-angle moment fields and the
-descriptor blur. BRIEF follows the reference's TPU route
+Levels are packed into one atlas. FAST-9/16 score + priority mix + 3x3 NMS
+of every level run in one launch of kernel K3 (``cuda_kernels.fast_nms``),
+each level within its own borders; a cell-capped top-k spreads the
+keypoints. The IC-angle moment fields and the descriptor blur run on the
+atlas too. BRIEF follows the reference's TPU route
 (``_brief_descriptors_mm``) in one kernel, K4
 (``cuda_kernels.brief_from_patches``): it gathers each 28x28 patch, samples
 it with the 64-angle-bin offset table and packs the bits. Descriptors are
@@ -211,14 +212,15 @@ def _border_mask(score: torch.Tensor, margin: int) -> torch.Tensor:
 @functools.lru_cache(maxsize=8)
 def _atlas_layout(height: int, width: int, n_levels: int, scale: float):
     """Vertical packing of the pyramid levels into one canvas: (shapes,
-    y-offsets, atlas height)."""
+    y-offsets, atlas height, the (y0, h, w) of each level as K3 takes it)."""
     shapes = level_shapes(height, width, n_levels, scale)
     offs = []
     y = 0
     for (lh, _lw) in shapes:
         offs.append(y)
         y += lh + _ATLAS_GAP
-    return shapes, offs, y - _ATLAS_GAP
+    layout = tuple((y0, lh, lw) for (lh, lw), y0 in zip(shapes, offs))
+    return shapes, offs, y - _ATLAS_GAP, layout
 
 
 @functools.lru_cache(maxsize=8)
@@ -234,22 +236,23 @@ def extract_orb(gray: torch.Tensor, dyna_mask: torch.Tensor, cfg: ORBConfig,
     """ORB features of an (H, W) grayscale image, erasing keypoints on
     dynamic pixels (mask == 255) with the < min_keypoints revert rule; each
     level over-selects and refills erased keypoints with the next best."""
-    shapes, offs, atlas_h = _atlas_layout(height, width, cfg.n_levels,
-                                          cfg.scale_factor)
+    shapes, offs, atlas_h, layout = _atlas_layout(height, width, cfg.n_levels,
+                                                  cfg.scale_factor)
     quotas = level_quotas(cfg.n_features, cfg.n_levels, cfg.scale_factor)
     dev = gray.device
     level_offs = _atlas_offsets_on(tuple(offs), dev)
     g = gray.to(torch.float32)
     atlas = torch.zeros((atlas_h, width), dtype=torch.float32, device=dev)
     level_img = g
-    level_scores = []
     for l, ((lh, lw), y0) in enumerate(zip(shapes, offs)):
         if l > 0:
             level_img = im.resize_bilinear(level_img, (lh, lw))
         atlas[y0:y0 + lh, :lw] = level_img
-        level_scores.append(ck.fast_nms(level_img.contiguous(),
-                                        float(cfg.min_th_fast),
-                                        float(cfg.ini_th_fast)))
+    # every level in one launch; each level's scores are a view of the result
+    scores = ck.fast_nms(atlas, float(cfg.min_th_fast), float(cfg.ini_th_fast),
+                         levels=layout)
+    level_scores = [scores[y0:y0 + lh, :lw]
+                    for (lh, lw), y0 in zip(shapes, offs)]
     m10_img, m01_img = ic_angle_fields(atlas)
     blur = im.gaussian_blur(atlas, 7, 2.0)
 

@@ -66,11 +66,7 @@ def components_k2(labels: torch.Tensor, mask: torch.Tensor,
                   n_sweeps: int) -> torch.Tensor:
     """Components where 4-neighbours connect only if ``labels`` agree and
     both are in ``mask``: ids are min linear index + 1, 0 outside."""
-    h, w = labels.shape
-    idx0 = torch.arange(h * w, dtype=torch.int32, device=labels.device
-                        ).reshape(h, w) + 1
-    seed = torch.where(mask, idx0, 0)
-    return ck.cc_labels(seed, mask, labels, n_sweeps=n_sweeps)
+    return ck.cc_labels(None, mask, labels, n_sweeps=n_sweeps)
 
 
 def rag_merge(kmeans_labels: torch.Tensor, edges: torch.Tensor,

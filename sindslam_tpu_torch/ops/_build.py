@@ -33,8 +33,13 @@ SIGNATURES = {
     "sor_inner": ("sor_inner",
                   [_P] * 11 + [_I, _I, _F, _F, _F, _I, _I, _P]),
     "sor_inner_launches": ("sor_inner", [_I, _I, _I, _I]),
-    "cc_labels": ("cc_labels", [_P] * 7 + [_I, _I, _I, _P]),
-    "fast_nms": ("fast_nms", [_P] * 3 + [_I, _I, _F, _F, _P]),
+    # seed, mask, labels, mask bytes, 4 strides, buf, flags, h, w, n_sweeps,
+    # launches made (host int), stream
+    "cc_labels": ("cc_labels",
+                  [_P] * 3 + [_I] * 5 + [_P, _P, _I, _I, _I, _P, _P]),
+    "cc_labels_launches": ("cc_labels", [_I, _I, _I]),
+    # img, out, H, W, levels (host ints), n_levels, min_th, ini_th, stream
+    "fast_nms": ("fast_nms", [_P, _P, _I, _I, _P, _I, _F, _F, _P]),
     "extract_patches": ("extract_patches",
                         [_P] * 4 + [_I, _I, _I, _I, _P]),
     "brief_from_patches": ("extract_patches", [_P] * 6 + [_I, _I, _I, _P]),

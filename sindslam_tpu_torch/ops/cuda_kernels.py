@@ -21,12 +21,15 @@ raising when the launch reports an error; there is no fallback. What bounds
 each kernel on the H100 and what its design does about it is written at the
 top of its source. ``LAUNCHES`` counts the wrapper calls that launched a
 kernel; one call may make several CUDA launches (see each source), which
-``SOR_INNER_CUDA_LAUNCHES`` counts for K1, per level shape.
+``SOR_INNER_CUDA_LAUNCHES`` counts for K1, per level shape, and
+``CC_LABELS_CUDA_LAUNCHES`` for K2, per image shape and sweep budget.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import ctypes
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,12 +43,15 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "brief_from_patches")}
 # (h, w) -> [wrapper calls, CUDA launches they made]
 SOR_INNER_CUDA_LAUNCHES: Dict[Tuple[int, int], List[int]] = {}
+# (h, w, n_sweeps) -> [wrapper calls, CUDA launches they made]
+CC_LABELS_CUDA_LAUNCHES: Dict[Tuple[int, int, int], List[int]] = {}
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     SOR_INNER_CUDA_LAUNCHES.clear()
+    CC_LABELS_CUDA_LAUNCHES.clear()
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -198,21 +204,23 @@ def sor_inner(ix, iy, iz, ixx, ixy, iyy, ixz, iyz, u, v, *, alpha: float,
 
 # ---------------------------------------------------------------- K2 -------
 
-def cc_labels_plain(seed: torch.Tensor, mask: torch.Tensor,
+def cc_labels_plain(seed: Optional[torch.Tensor], mask: torch.Tensor,
                     labels: torch.Tensor, n_sweeps: int) -> torch.Tensor:
     """Exactly ``n_sweeps`` Jacobi min-label sweeps (the Pallas body of
     ``cc_labels_pallas``). Stops early only at a fixed point, after which
     further sweeps change nothing."""
-    h, w = seed.shape
+    h, w = mask.shape
     big = 1 << 30
     in_img = mask.to(torch.int32) > 0
     labels = labels.to(torch.int32)
-    rows = torch.arange(h, device=seed.device)[:, None]
-    cols = torch.arange(w, device=seed.device)[None, :]
+    rows = torch.arange(h, device=mask.device)[:, None]
+    cols = torch.arange(w, device=mask.device)[None, :]
     dirs = [(-1, 0, rows > 0), (1, 0, rows < h - 1), (0, -1, cols > 0),
             (0, 1, cols < w - 1)]
     links = [okd & in_img & _shift(in_img.to(torch.uint8), dy, dx).bool()
              & (_shift(labels, dy, dx) == labels) for dy, dx, okd in dirs]
+    if seed is None:
+        seed = torch.where(in_img, rows * w + cols + 1, 0)
     comp = seed.to(torch.int32)
     for k in range(n_sweeps):
         best = torch.where(comp > 0, comp, big)
@@ -227,26 +235,53 @@ def cc_labels_plain(seed: torch.Tensor, mask: torch.Tensor,
     return torch.where(in_img, comp, 0)
 
 
-def cc_labels(seed: torch.Tensor, mask: torch.Tensor, labels: torch.Tensor,
-              n_sweeps: int = 512) -> torch.Tensor:
-    """Connected components by min-label propagation: (h, w) int32 seeds,
-    a mask (0 = background) and a cluster image (neighbours connect only
-    where equal). Kernel: ``csrc/cc_labels.cu``."""
-    if _on_cpu(seed, mask, labels):
+def cc_labels(seed: Optional[torch.Tensor], mask: torch.Tensor,
+              labels: torch.Tensor, n_sweeps: int = 512) -> torch.Tensor:
+    """Connected components by min-label propagation on an (h, w) image:
+    int32 seeds (``None``: linear index + 1 inside the mask), a mask (bool,
+    or a number that is 0 on the background) and a cluster image (neighbours
+    connect only where equal; pass the mask itself for plain connectivity).
+    The kernel reads a bool, uint8 or int32 mask and an int32 cluster image
+    as they lie in memory, strided views too. Kernel: ``csrc/cc_labels.cu``."""
+    if _on_cpu(*(t for t in (seed, mask, labels) if t is not None)):
         return cc_labels_plain(seed, mask, labels, n_sweeps)
-    h, w = seed.shape
-    seed = seed.to(torch.int32).contiguous()
-    mask = mask.to(torch.int32).contiguous()
-    labels = labels.to(torch.int32).contiguous()
-    for name, t in (("seed", seed), ("mask", mask), ("labels", labels)):
-        _check(t, f"cc_labels {name}", torch.int32, (h, w))
-    out = torch.empty_like(seed)
-    ping = torch.empty_like(seed)
-    pong = torch.empty_like(seed)
-    links = torch.empty((h, w), dtype=torch.uint8, device=seed.device)
-    ptrs = [t.data_ptr() for t in (seed, mask, labels, out, ping, pong, links)]
-    _launch("cc_labels", seed.device, *ptrs, h, w, int(n_sweeps))
-    return out
+    if mask.dim() != 2 or labels.shape != mask.shape:
+        raise ValueError(f"cc_labels: mask {tuple(mask.shape)} and labels "
+                         f"{tuple(labels.shape)} must be one (h, w) shape")
+    h, w = mask.shape
+    if h * w >= (1 << 30) - 1:
+        raise ValueError(f"cc_labels: {h}x{w} pixels do not fit the labels")
+    if n_sweeps < 0:
+        raise ValueError(f"cc_labels: n_sweeps {n_sweeps} < 0")
+    if mask.dtype == torch.bool:
+        m = mask.view(torch.uint8)
+    elif mask.dtype in (torch.uint8, torch.int32):
+        m = mask
+    else:
+        m = mask.to(torch.int32)
+    lab = None
+    if labels is not mask:
+        lab = labels if labels.dtype == torch.int32 else labels.to(torch.int32)
+    if seed is not None:
+        seed = seed.to(torch.int32).contiguous()
+        _check(seed, "cc_labels seed", torch.int32, (h, w))
+    n_plan = _build.load("cc_labels_launches")(h, w, int(n_sweeps))
+    buf = torch.empty((2, h, w), dtype=torch.int32, device=mask.device)
+    flags = torch.zeros((n_plan + 1,), dtype=torch.int32, device=mask.device)
+    made = ctypes.c_int(0)
+    _launch("cc_labels", mask.device,
+            None if seed is None else seed.data_ptr(), m.data_ptr(),
+            None if lab is None else lab.data_ptr(), m.element_size(),
+            m.stride(0), m.stride(1),
+            0 if lab is None else lab.stride(0),
+            0 if lab is None else lab.stride(1),
+            buf.data_ptr(), flags.data_ptr(), h, w, int(n_sweeps),
+            ctypes.byref(made))
+    per_shape = CC_LABELS_CUDA_LAUNCHES.setdefault((h, w, int(n_sweeps)),
+                                                   [0, 0])
+    per_shape[0] += 1
+    per_shape[1] += made.value
+    return buf[(made.value - 1) % 2]
 
 
 # ---------------------------------------------------------------- K3 -------
@@ -254,6 +289,8 @@ def cc_labels(seed: torch.Tensor, mask: torch.Tensor, labels: torch.Tensor,
 _FAST_RING_OFFS = [(-3, 0), (-3, 1), (-2, 2), (-1, 3), (0, 3), (1, 3),
                    (2, 2), (3, 1), (3, 0), (3, -1), (2, -2), (1, -3),
                    (0, -3), (-1, -3), (-2, -2), (-3, -1)]
+_FAST_MAX_LEVELS = 16
+Levels = Tuple[Tuple[int, int, int], ...]   # (y0, h, w) of each level
 
 
 def _shift_fill(x: torch.Tensor, dy: int, dx: int, fill: torch.Tensor
@@ -269,10 +306,28 @@ def _shift_fill(x: torch.Tensor, dy: int, dx: int, fill: torch.Tensor
     return torch.where(inb, out, fill)
 
 
-def fast_nms_plain(img: torch.Tensor, min_th: float, ini_th: float
-                   ) -> torch.Tensor:
-    """FAST-9/16 max-margin score + priority mix + 3x3 NMS (the Pallas body
-    of ``fast_nms_pallas``)."""
+@functools.lru_cache(maxsize=32)
+def _fast_levels(levels: Optional[Levels], h: int, w: int):
+    """The layout checked against an (h, w) image: (levels, their (y0, h, w)
+    triples as a C int array). ``None`` is the whole image as one level."""
+    if levels is None:
+        levels = ((0, h, w),)
+    levels = tuple(tuple(int(v) for v in lvl) for lvl in levels)
+    if not 1 <= len(levels) <= _FAST_MAX_LEVELS:
+        raise ValueError(f"fast_nms: {len(levels)} levels, 1 to "
+                         f"{_FAST_MAX_LEVELS} supported")
+    end = 0
+    for y0, lh, lw in sorted(levels):
+        if y0 < end or lh < 1 or y0 + lh > h or not 1 <= lw <= w:
+            raise ValueError(f"fast_nms: level (y0 {y0}, h {lh}, w {lw}) "
+                             f"overlaps another or leaves the {h}x{w} image")
+        end = y0 + lh
+    flat = [v for lvl in levels for v in lvl]
+    return levels, (ctypes.c_int * len(flat))(*flat)
+
+
+def _fast_nms_level(img: torch.Tensor, min_th: float, ini_th: float
+                    ) -> torch.Tensor:
     ring = [_shift_fill(img, dy, dx, img) for dy, dx in _FAST_RING_OFFS]
     neg = torch.full_like(img, -1e9)
     best_b, best_d = neg, neg
@@ -296,17 +351,39 @@ def fast_nms_plain(img: torch.Tensor, min_th: float, ini_th: float
     return torch.where(score >= m, score, 0.0)
 
 
-def fast_nms(img: torch.Tensor, min_th: float, ini_th: float) -> torch.Tensor:
-    """FAST score + priority mix + NMS for one (h, w) f32 pyramid level.
-    Kernel: ``csrc/fast_nms.cu``."""
+def fast_nms_plain(img: torch.Tensor, min_th: float, ini_th: float,
+                   levels: Optional[Levels] = None) -> torch.Tensor:
+    """FAST-9/16 max-margin score + priority mix + 3x3 NMS (the Pallas body
+    of ``fast_nms_pallas``), level by level; 0 outside every level."""
+    if levels is None:
+        return _fast_nms_level(img, min_th, ini_th)
+    levels, _ = _fast_levels(tuple(map(tuple, levels)), *img.shape)
+    out = torch.zeros_like(img)
+    for y0, lh, lw in levels:
+        out[y0:y0 + lh, :lw] = _fast_nms_level(img[y0:y0 + lh, :lw], min_th,
+                                               ini_th)
+    return out
+
+
+def fast_nms(img: torch.Tensor, min_th: float, ini_th: float,
+             levels: Optional[Levels] = None) -> torch.Tensor:
+    """FAST score + priority mix + NMS of an (H, W) f32 image in one launch.
+    ``levels`` is the static layout ((y0, h, w), ...) of pyramid levels
+    packed into the image, level l on rows [y0, y0 + h) and columns [0, w):
+    each is scored within its own borders and everything else comes out 0.
+    ``None``: the whole image is one level. Kernel: ``csrc/fast_nms.cu``."""
     if _on_cpu(img):
-        return fast_nms_plain(img, min_th, ini_th)
-    h, w = img.shape
+        return fast_nms_plain(img, min_th, ini_th, levels)
     _check(img, "fast_nms img", torch.float32)
+    if img.dim() != 2:
+        raise ValueError(f"fast_nms img: expected (H, W), got "
+                         f"{tuple(img.shape)}")
+    h, w = img.shape
+    levels, c_levels = _fast_levels(
+        None if levels is None else tuple(map(tuple, levels)), h, w)
     out = torch.empty_like(img)
-    score = torch.empty_like(img)
-    _launch("fast_nms", img.device, img.data_ptr(), out.data_ptr(),
-            score.data_ptr(), h, w, float(min_th), float(ini_th))
+    _launch("fast_nms", img.device, img.data_ptr(), out.data_ptr(), h, w,
+            c_levels, len(levels), float(min_th), float(ini_th))
     return out
 
 

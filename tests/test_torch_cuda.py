@@ -9,7 +9,9 @@ import no JAX, so they run where JAX is not installed:
 Tolerances as in ``tests/test_torch_kernels.py``: K1 atol 1e-4 / rtol
 1e-3 (FMA contraction and ``rsqrtf`` against PyTorch's ops) in both of its
 regimes (one block for a small level, tiles with a halo for a large one),
-K2-K4 and the fused BRIEF exact.
+K2-K4 and the fused BRIEF exact: K2 at budgets under, at and between
+multiples of its sweeps per launch and where the budget binds, K3 on one
+level and on an atlas of levels in one launch.
 """
 
 import numpy as np
@@ -133,3 +135,116 @@ def test_brief_from_patches_bit_exact(cuda_device):
     assert ck.LAUNCHES["brief_from_patches"] == 1
     with pytest.raises(ValueError, match="bins"):
         ck.brief_from_patches(img, y0, x0, bins + 1, table)
+
+
+def _serpentine(h=24, w=64):
+    mask = np.zeros((h, w), bool)
+    for r in range(0, h, 2):
+        mask[r, :] = True
+        if r + 1 < h:
+            mask[r + 1, w - 1 if (r // 2) % 2 == 0 else 0] = True
+    return mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,n_sweeps,launches", [
+    (150, 203, 0, 1), (150, 203, 3, 1), (150, 203, 16, 1), (150, 203, 24, 1),
+    (150, 203, 25, 2), (150, 203, 128, 6),     # 130 tiles: 24 sweeps a launch
+    (240, 320, 16, 1), (240, 320, 17, 2), (240, 320, 128, 8),    # 80: 16
+    (480, 640, 7, 1), (480, 640, 8, 1), (480, 640, 37, 5)])      # 140: 8
+def test_cc_labels_budgets_match_plain(cuda_device, h, w, n_sweeps, launches):
+    """Budgets under, at and just over one launch's sweeps, on images of
+    many tiles; the seed given and left to the kernel, the mask bool and
+    int32, contiguous and strided; the launches counted."""
+    dev = cuda_device
+    rng = np.random.default_rng(2)
+    labels = torch.from_numpy((rng.random((h, w)) * 2).astype(np.int32)).to(dev)
+    mask = torch.from_numpy(rng.random((h, w)) < 0.8).to(dev)
+    seed = torch.from_numpy(_seed(mask.cpu().numpy())).to(dev)
+    ref = ck.cc_labels_plain(seed, mask, labels, n_sweeps)
+    ck.reset_launch_counts()
+    assert torch.equal(ck.cc_labels(None, mask, labels, n_sweeps=n_sweeps), ref)
+    assert ck.CC_LABELS_CUDA_LAUNCHES == {(h, w, n_sweeps): [1, launches]}
+    assert torch.equal(ck.cc_labels(seed, mask.to(torch.int32), labels,
+                                    n_sweeps=n_sweeps), ref)
+    wide_m = torch.zeros((2 * h, 2 * w), dtype=torch.bool, device=dev)
+    wide_l = torch.zeros((2 * h, 2 * w), dtype=torch.int32, device=dev)
+    wide_m[::2, ::2] = mask
+    wide_l[::2, ::2] = labels
+    assert torch.equal(ck.cc_labels(None, wide_m[::2, ::2], wide_l[::2, ::2],
+                                    n_sweeps=n_sweeps), ref)
+    assert torch.equal(ck.cc_labels(None, mask, mask, n_sweeps=n_sweeps),
+                       ck.cc_labels_plain(None, mask, mask, n_sweeps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sweeps,one", [(780, True), (700, False)])
+def test_cc_labels_serpentine_at_budget(cuda_device, n_sweeps, one):
+    mask = torch.from_numpy(_serpentine()).to(cuda_device)
+    got = ck.cc_labels(None, mask, mask, n_sweeps=n_sweeps)
+    assert torch.equal(got, ck.cc_labels_plain(None, mask, mask, n_sweeps))
+    assert (len(torch.unique(got[mask])) == 1) == one
+
+
+@pytest.mark.cuda
+def test_cc_labels_odd_seeds_and_bad_input(cuda_device):
+    """Seeds that are 0 or negative inside the mask come back as they went
+    in unless a label reaches them; shapes that differ are refused."""
+    dev = cuda_device
+    rng = np.random.default_rng(6)
+    h, w = 70, 90
+    mask_np = rng.random((h, w)) < 0.7
+    seed_np = np.where(rng.random((h, w)) < 0.1, _seed(mask_np), 0)
+    seed_np[rng.random((h, w)) < 0.05] = -3
+    seed = torch.from_numpy(seed_np.astype(np.int32)).to(dev)
+    mask = torch.from_numpy(mask_np).to(dev)
+    labels = torch.from_numpy((rng.random((h, w)) * 3).astype(np.int32)).to(dev)
+    for n in (2, 11, 40):
+        assert torch.equal(ck.cc_labels(seed, mask, labels, n_sweeps=n),
+                           ck.cc_labels_plain(seed, mask, labels, n))
+    with pytest.raises(ValueError, match="shape"):
+        ck.cc_labels(None, mask, labels[:-1], n_sweeps=4)
+    with pytest.raises(ValueError, match="n_sweeps"):
+        ck.cc_labels(None, mask, labels, n_sweeps=-1)
+
+
+_SMALL_ATLAS = ((0, 64, 80), (96, 53, 67), (181, 44, 56))
+
+
+@pytest.mark.cuda
+def test_fast_nms_atlas_and_single_level(cuda_device):
+    """An atlas of three levels in one launch equals the plain version and,
+    level by level, the call on the level alone (level borders included);
+    ``levels=None`` is one level; bad input is refused."""
+    dev = cuda_device
+    rng = np.random.default_rng(9)
+    atlas = torch.zeros((225, 80), dtype=torch.float32)
+    for y0, h, w in _SMALL_ATLAS:
+        atlas[y0:y0 + h, :w] = torch.from_numpy(
+            (rng.random((h, w)) * 255).astype(np.float32))
+    coarse = torch.round(atlas / 64) * 64          # ties and zero margins
+    for img in (atlas.to(dev), coarse.to(dev)):
+        ck.reset_launch_counts()
+        got = ck.fast_nms(img, 7.0, 20.0, levels=_SMALL_ATLAS)
+        assert ck.LAUNCHES["fast_nms"] == 1
+        assert torch.equal(got, ck.fast_nms_plain(img, 7.0, 20.0,
+                                                  levels=_SMALL_ATLAS))
+        for y0, h, w in _SMALL_ATLAS:
+            alone = ck.fast_nms(img[y0:y0 + h, :w].contiguous(), 7.0, 20.0)
+            assert torch.equal(got[y0:y0 + h, :w], alone)
+            assert (alone > 0).any()
+        whole = ck.fast_nms(img, 7.0, 20.0)
+        assert torch.equal(whole, ck.fast_nms_plain(img, 7.0, 20.0))
+    # levels that touch (no gap) keep their own borders
+    touching = ((0, 100, 80), (100, 125, 61))
+    img = atlas.to(dev)
+    assert torch.equal(ck.fast_nms(img, 7.0, 20.0, levels=touching),
+                       ck.fast_nms_plain(img, 7.0, 20.0, levels=touching))
+    with pytest.raises(TypeError):
+        ck.fast_nms(img.double(), 7.0, 20.0)
+    with pytest.raises(ValueError, match="level"):
+        ck.fast_nms(img, 7.0, 20.0, levels=((0, 64, 81),))
+    with pytest.raises(ValueError, match="level"):
+        ck.fast_nms(img, 7.0, 20.0, levels=((200, 30, 40),))
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.fast_nms(img[:, :40], 7.0, 20.0)

@@ -5,8 +5,12 @@ the cases of ``tests/test_pallas_kernels.py``.
 Tolerances: K1 (SOR inner solve) atol 1e-4 / rtol 1e-3, as the Pallas
 kernel is held against its XLA twin (float sums in another order); K2 (CC
 labels) and K4 (patches, alone and fused with the BRIEF test) exact; K3 (FAST + NMS) exact on the region the
-extractor keeps (19 px margin). The CUDA kernels themselves are held
-against these plain versions in ``tests/test_torch_cuda.py``.
+extractor keeps (19 px margin), one level or an atlas of levels in one
+call. The CUDA kernels themselves are held against these plain versions in
+``tests/test_torch_cuda.py``; here numpy mirrors of what K2 and K3 do
+differently from their plain versions (K2: tiles with a halo, launches of k
+sweeps, both early exits; K3: run minima and maxima by doubling) are held
+against the plain versions, exactly.
 """
 
 import numpy as np
@@ -53,7 +57,7 @@ def _seed(mask):
     return np.where(mask, np.arange(h * w).reshape(h, w) + 1, 0).astype(np.int32)
 
 
-@pytest.mark.parametrize("n_sweeps", [3, 20, 128])
+@pytest.mark.parametrize("n_sweeps", [3, 20, 128, 1, 15, 16, 17, 33])
 def test_cc_labels_plain_matches_pallas(n_sweeps):
     rng = np.random.default_rng(11)
     h, w = 48, 64
@@ -118,6 +122,199 @@ def test_cc_labels_plain_serpentine_at_budget(n_sweeps, n_components):
     assert (got[~mask] == 0).all()
 
 
+def _cc_case(h, w, seed, n_labels=3, fill=0.7):
+    rng = np.random.default_rng(seed)
+    labels = (rng.random((h, w)) * n_labels).astype(np.int32)
+    mask = rng.random((h, w)) < fill
+    return labels, mask
+
+
+def test_cc_labels_seed_none_bool_mask_and_labels_is_mask():
+    """``seed=None`` is the linear index + 1 inside the mask; a bool mask
+    and ``labels is mask`` give what the int32 casts give."""
+    labels, mask = _cc_case(40, 52, 3)
+    t_mask, t_lab = torch.from_numpy(mask), torch.from_numpy(labels)
+    seed = torch.from_numpy(_seed(mask))
+    ref = ck.cc_labels(seed, t_mask.to(torch.int32), t_lab, n_sweeps=40)
+    assert torch.equal(ck.cc_labels(None, t_mask, t_lab, n_sweeps=40), ref)
+    plain = ck.cc_labels(seed, t_mask.to(torch.int32),
+                         t_mask.to(torch.int32), n_sweeps=40)
+    assert torch.equal(ck.cc_labels(None, t_mask, t_mask, n_sweeps=40), plain)
+    # strided views, as the half-resolution subsampling hands them over
+    big_l, big_m = _cc_case(80, 104, 4)
+    v_l = torch.from_numpy(big_l)[::2, ::2]
+    v_m = torch.from_numpy(big_m)[::2, ::2]
+    assert torch.equal(ck.cc_labels(None, v_m, v_l, n_sweeps=9),
+                       ck.cc_labels(None, v_m.contiguous(), v_l.contiguous(),
+                                    n_sweeps=9))
+
+
+def test_cc_labels_plain_fixed_point_exit_equals_full_budget():
+    """The plain version leaves its loop at a fixed point; a version that
+    runs every sweep of the budget returns the same labels."""
+    mask = _serpentine(12, 24)
+    labels = mask.astype(np.int32)
+    seed = _seed(mask)
+    comp = seed.copy()
+    big = 1 << 30
+
+    def sh(x, dy, dx, fill):
+        out = np.full_like(x, fill)
+        h, w = x.shape
+        out[max(-dy, 0):h - max(dy, 0), max(-dx, 0):w - max(dx, 0)] = \
+            x[max(dy, 0):h - max(-dy, 0), max(dx, 0):w - max(-dx, 0)]
+        return out
+
+    dirs = [(-1, 0), (1, 0), (0, -1), (0, 1)]
+    links = [mask & sh(mask, dy, dx, False) & (sh(labels, dy, dx, -1) == labels)
+             for dy, dx in dirs]
+    n_sweeps, last_change = 400, 0
+    for k in range(n_sweeps):
+        best = np.where(comp > 0, comp, big)
+        for (dy, dx), link in zip(dirs, links):
+            n = sh(comp, dy, dx, 0)
+            best = np.minimum(best, np.where(link & (n > 0), n, big))
+        new = np.where(mask & (best < big), best, comp)
+        if (new != comp).any():
+            last_change = k + 1
+        comp = new
+    full = np.where(mask, comp, 0)
+    assert 16 < last_change < n_sweeps - 32    # the exit has sweeps to skip
+    got = ck.cc_labels_plain(torch.from_numpy(seed), torch.from_numpy(mask),
+                             torch.from_numpy(labels), n_sweeps).numpy()
+    np.testing.assert_array_equal(got, full)
+
+
+def _cc_tiled_mirror(seed, mask, labels, n_sweeps, tile, k):
+    """numpy mirror of the tiling of ``csrc/cc_labels.cu``: launches of k
+    sweeps (the last takes the remainder) on tiles with a halo of k, links
+    cut at the tile edge, every tile swept on its own (a sweep leaves out
+    the rows too far from the interior to reach it in the sweeps that are
+    left) and stopped at its own fixed point, interiors written back in the final form to the other of
+    two buffers, and a launch skipped when the one before changed nothing.
+    Returns (labels, launches that ran)."""
+    h, w = mask.shape
+    big = np.uint32(1 << 30)
+    off = np.uint32(0xFFFFFFFF)
+    interior = tile - 2 * k
+    n_launch = max(-(-n_sweeps // k), 1)
+    bufs = [np.full((h, w), -7, np.int32), np.full((h, w), -7, np.int32)]
+    flags = np.zeros(n_launch + 1, np.int32)
+    ran, left = 0, n_sweeps
+    for i in range(n_launch):
+        sweeps = min(left, k)
+        left -= sweeps
+        src = None if i == 0 else bufs[(i - 1) % 2]
+        dst = bufs[i % 2]
+        if src is not None and flags[i] == 0:
+            continue
+        ran += 1
+        moved = False
+        for R0 in range(0, h, interior):
+            for C0 in range(0, w, interior):
+                r_lo, c_lo = R0 - k, C0 - k
+                rr = np.arange(r_lo, r_lo + tile)[:, None]
+                cc = np.arange(c_lo, c_lo + tile)[None, :]
+                inside = (rr >= 0) & (rr < h) & (cc >= 0) & (cc < w)
+                rc, ccl = np.clip(rr, 0, h - 1), np.clip(cc, 0, w - 1)
+                m = inside & (mask[rc, ccl] > 0)
+                lab = np.where(inside, labels[rc, ccl], 0)
+                if src is not None:
+                    x = src[rc, ccl]
+                elif seed is not None:
+                    x = seed[rc, ccl]
+                else:
+                    x = rc * w + ccl + 1
+                x = np.where(inside, x, 0)
+                v = np.where(m & (x > 0) & (x < (1 << 30)), x, 1 << 30
+                             ).astype(np.uint32)
+
+                def nb(a, dy, dx, fill):
+                    out = np.full_like(a, fill)
+                    out[max(-dy, 0):tile - max(dy, 0),
+                        max(-dx, 0):tile - max(dx, 0)] = \
+                        a[max(dy, 0):tile - max(-dy, 0),
+                          max(dx, 0):tile - max(-dx, 0)]
+                    return out
+
+                dirs = [(-1, 0), (1, 0), (0, -1), (0, 1)]
+                cuts = [np.where(m & nb(m, dy, dx, False)
+                                 & (nb(lab, dy, dx, -1) == lab),
+                                 np.uint32(0), off) for dy, dx in dirs]
+                for s in range(sweeps):
+                    # only the rows the interior can still hear of
+                    reach = sweeps - 1 - s
+                    ra, rb = max(k - reach, 0), min(tile - k + reach, tile)
+                    best = v
+                    for (dy, dx), cut in zip(dirs, cuts):
+                        best = np.minimum(best, nb(v, dy, dx, big) | cut)
+                    new = v.copy()
+                    new[ra:rb] = best[ra:rb]
+                    if (new == v).all():
+                        break
+                    v = new
+                R1, C1 = min(R0 + interior, h), min(C0 + interior, w)
+                t = v[k:k + R1 - R0, k:k + C1 - C0]
+                tm = m[k:k + R1 - R0, k:k + C1 - C0]
+                fall = (seed[R0:R1, C0:C1] if seed is not None
+                        else np.zeros_like(t, dtype=np.int32))
+                val = np.where(tm, np.where(t < big, t.astype(np.int32), fall), 0)
+                if src is not None:
+                    moved |= bool((src[R0:R1, C0:C1] != val).any())
+                dst[R0:R1, C0:C1] = val
+        if src is None:
+            moved = True
+        if moved:
+            flags[i + 1] = 1
+    return bufs[(n_launch - 1) % 2], ran
+
+
+@pytest.mark.parametrize("n_sweeps,tile,k", [
+    (0, 16, 4), (1, 16, 4), (3, 16, 4), (4, 16, 4), (5, 16, 4), (33, 16, 4),
+    (200, 16, 4), (40, 24, 8), (47, 12, 5)])
+def test_cc_labels_tiled_mirror_matches_plain(n_sweeps, tile, k):
+    """Tiles with a halo of k sweeps, the remainder in the last launch and
+    both early exits give exactly the labels of the sweeps over the whole
+    image."""
+    labels, mask = _cc_case(37, 50, 21, n_labels=2, fill=0.8)
+    seed = _seed(mask)
+    ref = ck.cc_labels_plain(torch.from_numpy(seed), torch.from_numpy(mask),
+                             torch.from_numpy(labels), n_sweeps).numpy()
+    for sd in (seed, None):
+        got, ran = _cc_tiled_mirror(sd, mask, labels, n_sweeps, tile, k)
+        np.testing.assert_array_equal(got, ref)
+        assert 1 <= ran <= max(-(-n_sweeps // k), 1)
+    if n_sweeps == 200:
+        assert ran < 50        # the fixed point came before the budget
+
+
+def test_cc_labels_tiled_mirror_serpentine_and_odd_seeds():
+    """The budget binds on the serpentine whatever the tiling; seeds that
+    are 0 or negative inside the mask stay as the Pallas kernel leaves
+    them."""
+    mask = _serpentine()
+    seed = _seed(mask)
+    for n_sweeps in (780, 700):
+        ref = ck.cc_labels_plain(torch.from_numpy(seed), torch.from_numpy(mask),
+                                 torch.from_numpy(mask), n_sweeps).numpy()
+        got, _ran = _cc_tiled_mirror(seed, mask, mask.astype(np.int32),
+                                     n_sweeps, 40, 16)
+        np.testing.assert_array_equal(got, ref)
+    labels, mask = _cc_case(30, 33, 5)
+    rng = np.random.default_rng(6)
+    seed = np.where(rng.random(mask.shape) < 0.1, _seed(mask), 0)
+    seed[rng.random(mask.shape) < 0.05] = -3
+    seed = seed.astype(np.int32)
+    ref = np.asarray(pk.cc_labels_pallas(jnp.asarray(seed), jnp.asarray(mask),
+                                         jnp.asarray(labels), n_sweeps=11,
+                                         interpret=True))
+    got = ck.cc_labels(torch.from_numpy(seed), torch.from_numpy(mask),
+                       torch.from_numpy(labels), n_sweeps=11).numpy()
+    np.testing.assert_array_equal(got, ref)
+    mirror, _ran = _cc_tiled_mirror(seed, mask, labels, 11, 16, 4)
+    np.testing.assert_array_equal(mirror, ref)
+
+
 @pytest.mark.parametrize("shape,seed", [((96, 130), 4), ((61, 77), 5)])
 def test_fast_nms_plain_matches_pallas(shape, seed):
     rng = np.random.default_rng(seed)
@@ -127,6 +324,108 @@ def test_fast_nms_plain_matches_pallas(shape, seed):
     got = ck.fast_nms(torch.from_numpy(img), 7.0, 20.0).numpy()
     m = 19
     np.testing.assert_array_equal(got[m:-m, m:-m], ref[m:-m, m:-m])
+
+
+_SMALL_ATLAS = ((0, 64, 80), (96, 53, 67), (181, 44, 56))   # gaps of 32 rows
+
+
+def _small_atlas(seed=9, height=225, width=80):
+    rng = np.random.default_rng(seed)
+    atlas = np.zeros((height, width), np.float32)
+    for y0, h, w in _SMALL_ATLAS:
+        atlas[y0:y0 + h, :w] = (rng.random((h, w)) * 255).astype(np.float32)
+    return atlas
+
+
+def test_fast_nms_levels_match_pallas_and_single_level_calls():
+    """One call over an atlas of three levels: inside the 19-pixel margin
+    each level is the Pallas kernel's result on that level, and everywhere,
+    level borders included, it is the single-level call on the level's
+    slice; gaps and the strip right of a level are 0."""
+    atlas = _small_atlas()
+    got = ck.fast_nms(torch.from_numpy(atlas), 7.0, 20.0,
+                      levels=_SMALL_ATLAS).numpy()
+    covered = np.zeros(atlas.shape, bool)
+    m = 19
+    for y0, h, w in _SMALL_ATLAS:
+        level = atlas[y0:y0 + h, :w]
+        ref = np.asarray(pk.fast_nms_pallas(jnp.asarray(level), 7.0, 20.0,
+                                            interpret=True))
+        np.testing.assert_array_equal(got[y0:y0 + h, :w][m:-m, m:-m],
+                                      ref[m:-m, m:-m])
+        single = ck.fast_nms(torch.from_numpy(level.copy()), 7.0, 20.0).numpy()
+        np.testing.assert_array_equal(got[y0:y0 + h, :w], single)
+        assert (single[[0, -1]] > 0).any()    # the border rows hold corners
+        assert (ref[m:-m, m:-m] > 0).any()
+        covered[y0:y0 + h, :w] = True
+    assert (got[~covered] == 0).all()
+
+
+@pytest.mark.parametrize("levels", [((0, 64, 81),), ((200, 30, 40),),
+                                    ((0, 64, 80), (60, 20, 20)),
+                                    ((0, 0, 10),)])
+def test_fast_nms_refuses_a_level_outside_the_image(levels):
+    with pytest.raises(ValueError, match="level"):
+        ck.fast_nms(torch.from_numpy(_small_atlas()), 7.0, 20.0, levels=levels)
+
+
+def _fast_doubling_mirror(atlas, levels, min_th, ini_th):
+    """numpy mirror of the arithmetic of ``csrc/fast_nms.cu``: ring samples
+    bounded by the level, d = ring - centre, run minima and maxima by
+    doubling (2, 4, 8, then 9), the dark margin as minus the run maximum,
+    and the 3x3 maximum bounded by the level."""
+    offs = [(-3, 0), (-3, 1), (-2, 2), (-1, 3), (0, 3), (1, 3), (2, 2),
+            (3, 1), (3, 0), (3, -1), (2, -2), (1, -3), (0, -3), (-1, -3),
+            (-2, -2), (-3, -1)]
+    out = np.zeros_like(atlas)
+    for y0, h, w in levels:
+        img = atlas[y0:y0 + h, :w]
+        ys, xs = np.mgrid[0:h, 0:w]
+
+        def at(a, dy, dx, fill):
+            inb = ((ys + dy >= 0) & (ys + dy < h) & (xs + dx >= 0)
+                   & (xs + dx < w))
+            return np.where(inb, a[np.clip(ys + dy, 0, h - 1),
+                                   np.clip(xs + dx, 0, w - 1)], fill)
+
+        d = [at(img, dy, dx, img) - img for dy, dx in offs]
+        lo = [np.minimum(d[k], d[(k + 1) % 16]) for k in range(16)]
+        hi = [np.maximum(d[k], d[(k + 1) % 16]) for k in range(16)]
+        for step in (2, 4):
+            lo = [np.minimum(lo[k], lo[(k + step) % 16]) for k in range(16)]
+            hi = [np.maximum(hi[k], hi[(k + step) % 16]) for k in range(16)]
+        best_b = np.full_like(img, -1e9)
+        worst_d = np.full_like(img, 1e9)
+        for k in range(16):
+            best_b = np.maximum(best_b, np.minimum(lo[k], d[(k + 8) % 16]))
+            worst_d = np.minimum(worst_d, np.maximum(hi[k], d[(k + 8) % 16]))
+        sc = np.maximum(best_b, np.float32(0) - worst_d)
+        sc = np.where(sc > min_th, sc, np.float32(0))
+        sc = np.where(sc > ini_th, sc + np.float32(1000), sc)
+        m = sc
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                if dy or dx:
+                    m = np.maximum(m, at(sc, dy, dx, np.float32(0)))
+        out[y0:y0 + h, :w] = np.where(sc >= m, sc, np.float32(0))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["random", "ties"])
+def test_fast_nms_doubling_mirror_matches_plain(kind):
+    """The kernel's order of operations (doubling, one subtraction a ring
+    sample) gives the plain version's values bit for bit, also on an image
+    of few grey levels where margins tie and many are zero."""
+    atlas = _small_atlas(seed=10)
+    if kind == "ties":
+        atlas = np.round(atlas / 64) * 64
+    ref = ck.fast_nms_plain(torch.from_numpy(atlas), 7.0, 20.0,
+                            levels=_SMALL_ATLAS).numpy()
+    got = _fast_doubling_mirror(atlas, _SMALL_ATLAS, np.float32(7.0),
+                                np.float32(20.0))
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, ref)
+    assert (ref > 0).sum() > 20
 
 
 def test_extract_patches_plain_matches_pallas():
@@ -219,5 +518,8 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
                           torch.zeros((64, 512), dtype=torch.int32))
     ck.sor_inner(*[torch.zeros((8, 9))] * 10, alpha=0.2, gamma=50.0,
                  omega=1.9, inner=1, sweeps=1)
+    ck.fast_nms(img, 7.0, 20.0, levels=((0, 20, 48), (20, 20, 30)))
+    ck.cc_labels(None, img > 128, img > 128, n_sweeps=4)
     assert all(c == 0 for c in ck.LAUNCHES.values())
     assert ck.SOR_INNER_CUDA_LAUNCHES == {}
+    assert ck.CC_LABELS_CUDA_LAUNCHES == {}
