@@ -29,7 +29,26 @@
 6. runs frames 2-6 again under ``torch.profiler`` and prints the device's
    busy time and idle share per frame, the host time per stage and the
    device time of the top kernels and the host-to-device copies per frame;
-7. prints a ``{"kernels_off_main_path": [...]}`` line for the standalone
+7. holds tracking on the card against tracking on the CPU: two consecutive
+   frames' features from the 640x480 run go through the matcher,
+   ``track_against_frame`` and ``full_track_step`` (the map being the
+   previous frame's unprojected points) on both devices; match indices,
+   inlier sets and the decoded packed words must be equal and the poses
+   within 1e-4;
+8. zeroes the launch counters and runs RGB-D odometry over the same 12
+   frames: masked, one ``fused_frontend_track_step`` a frame integrated as
+   ``OdometryTracker`` does, and unmasked (``extract_orb`` under a zero
+   mask, ``build_frame``, ``OdometryTracker.track``); prints both ATEs, the
+   frames lost, matches and inliers per frame and the median ms per frame
+   of the front-end, the tracking step and the whole step; fails on a lost
+   frame, on a kernel that did not launch, and when the masked ATE exceeds
+   the bound derived from the JAX package's odometry on the same frames;
+9. runs 6 frames through ``DynaDetector.detect``,
+   ``dilate_mask_for_tracking``, ``extract_orb``, ``build_frame`` and
+   ``OdometryTracker.track`` and holds the mask IoU as phase 5 does;
+10. profiles the tracking step alone (device events, device-to-host copies
+   and synchronisations per call) next to the front-end's counts;
+11. prints a ``{"kernels_off_main_path": [...]}`` line for the standalone
    patch gather (the main path reaches its loader only through the fused
    BRIEF kernel, so its launch count there is 0), a ``{"kernels": [...]}``
    line for the kernels the main path launches, then as its last line
@@ -69,6 +88,14 @@ KERNELS = {
 MAIN_PATH = ("sor_inner", "cc_labels", "fast_nms", "brief_from_patches")
 N_FRAMES = 12
 IOU_FLOOR = 0.5
+N_DYNA_FRAMES = 6
+POSE_TOL = 1e-4
+# ATE rmse of the JAX package's own odometry on the same 12 frames (dyn_walk,
+# seed 0, 640x480, fused front-end + tracking step, integrated as in
+# ``fused_odometry`` below): JAX, CPU backend, printed by
+# ``tools/torch_odometry_reference.py``. An accuracy, not a time.
+JAX_MASKED_ATE_M = 0.003571
+JAX_UNMASKED_ATE_M = 0.020642
 
 
 def check(cond: bool, what: str) -> None:
@@ -205,6 +232,220 @@ class Recorder:
         return rec
 
 
+def frame_to(torch, frame, device):
+    """A ``FrameData`` with its tensors on ``device``."""
+    return type(frame)(*(t.to(device) if isinstance(t, torch.Tensor) else t
+                         for t in frame))
+
+
+def tracking_cuda_vs_cpu(torch, prev, cur, cam, cfg, radius,
+                         devices=("cuda", "cpu")) -> dict:
+    """Match ``prev`` into ``cur`` and solve the pose on the card and on the
+    CPU (``devices``; the CPU tests pass the CPU twice to run the checks
+    themselves), from the identity pose, the map being ``prev``'s unprojected
+    points.
+    Raises unless the match indices (before and after the rotation filter),
+    the counts, the map match indices, the flags (valid, inlier, in frustum)
+    and the decoded packed words are equal and the poses agree within
+    ``POSE_TOL``; returns what it compared."""
+    from sindslam_tpu_torch.slam import matching, tracking
+    from sindslam_tpu_torch.slam.frame import (project_world_points,
+                                               unproject_to_world)
+
+    got = []
+    for dev in devices:
+        p, c = frame_to(torch, prev, dev), frame_to(torch, cur, dev)
+        eye = torch.eye(4, device=dev)
+        pts_w = unproject_to_world(p, eye, cam)
+        uv, in_frustum = project_world_points(pts_w, eye, cam)
+        src_ok = p.valid & (p.depth > 0)
+        m = matching.match_by_projection(
+            uv, src_ok & in_frustum, p.desc, p.level, c.xy, c.desc, c.level,
+            c.valid, radius=radius, max_dist=cfg.hamming_th_high)
+        mf = matching.filter_rotation_consistency(m, p.angle, c.angle)
+        r = tracking.track_against_frame(p, eye, c, eye, cam, cfg, radius)
+        full = tracking.full_track_step(p, eye, c, eye, pts_w, p.desc, src_ok,
+                                        cam, cfg, radius)
+        got.append(dict(
+            idx=m.idx.cpu(), idx_filtered=mf.idx.cpu(), Tcw=r.Tcw.cpu(),
+            counts=(int(r.n_matches), int(r.n_inliers)),
+            poses=full.poses.cpu(), full_counts=full.counts.cpu(),
+            map_idx=full.map_match_idx.cpu(), flags=full.flags.cpu(),
+            packed=full.packed.cpu().numpy()))
+    g, c = got
+    n_pts = g["map_idx"].shape[0]
+    for key in ("idx", "idx_filtered", "full_counts", "map_idx", "flags"):
+        check(torch.equal(g[key], c[key]), f"tracking: {key} differs between "
+                                           f"the card and the CPU")
+    check(g["counts"] == c["counts"], f"tracking: counts {g['counts']} on the "
+                                      f"card, {c['counts']} on the CPU")
+    err = max(float((g["Tcw"] - c["Tcw"]).abs().max()),
+              float((g["poses"] - c["poses"]).abs().max()))
+    check(err <= POSE_TOL, f"tracking: poses differ by {err} between the card "
+                           f"and the CPU")
+    words = []
+    for dev, r in zip(devices, got):
+        _poses, counts, idx, flags = tracking.unpack_track_out(r["packed"],
+                                                               n_pts)
+        words.append((idx, flags))
+        check((idx == r["map_idx"].numpy()).all()
+              and (flags == r["flags"].numpy()).all()
+              and (counts == r["full_counts"].numpy()).all(),
+              f"tracking: the packed words on {dev} do not decode to the "
+              f"step's own idx/flags/counts")
+    check((words[0][0] == words[1][0]).all()
+          and (words[0][1] == words[1][1]).all(),
+          "tracking: decoded packed words differ between the card and the CPU")
+    n_matches, n_inliers = g["counts"]
+    check(n_matches >= 100 and n_inliers >= cfg.min_tracked_points,
+          f"tracking case is trivial: {n_matches} matches, {n_inliers} inliers")
+    return dict(n_matches=n_matches, n_inliers=n_inliers, pose_err=err,
+                map_matches=int(g["flags"][0].sum()),
+                map_inliers=int(g["flags"][1].sum()), n_points=n_pts)
+
+
+def fused_odometry(torch, cfg, frames, device, timed=False) -> dict:
+    """Masked odometry over ``frames``: one ``fused_frontend_track_step`` a
+    frame (the map being the previous frame's unprojected points), integrated
+    as ``OdometryTracker`` does: constant-velocity prediction; the refined
+    pose is kept when the frame-to-frame solve has ``min_tracked_points``
+    inliers, otherwise the prediction stands and the frame counts as lost.
+    One device-to-host copy a frame (``packed_small``). With ``timed`` the
+    whole step is timed by the host clock after ``torch.cuda.synchronize()``
+    and the tracking step is run once more alone on the same inputs and
+    timed the same way."""
+    from sindslam_tpu_torch.frontend import pipeline as fp
+    from sindslam_tpu_torch.geometry import se3
+    from sindslam_tpu_torch.ops import image as im
+    from sindslam_tpu_torch.slam import tracking
+    from sindslam_tpu_torch.slam.frame import (frame_from_frontend,
+                                               unproject_to_world)
+
+    import numpy as np
+
+    cam, tcfg = cfg.camera, cfg.tracking
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    rgbs = [torch.from_numpy(f[0]).to(dev) for f in frames]
+    depths = [torch.from_numpy(f[1]).to(dev) for f in frames]
+    state = fp.init_state(cfg, im.rgb_to_gray(rgbs[0]), device=dev)
+    out, state = fp.frontend_step(rgbs[0], depths[0], state, cfg)
+    prev = frame_from_frontend(out)
+    Tcw = vel = torch.eye(4, device=dev)
+    poses, inliers, matches, lost = [np.eye(4)], [0], [0], 0
+    step_ms, track_ms, masks = [], [], [out.dyna_mask]
+    for rgb, depth in zip(rgbs[1:], depths[1:]):
+        sync()
+        t0 = time.perf_counter()
+        prev_Twc = se3.se3_inverse(Tcw)
+        pred = vel @ Tcw
+        map_pos = unproject_to_world(prev, prev_Twc, cam)
+        map_ok = prev.valid & (prev.depth > 0)
+        out, state, res, _pack = tracking.fused_frontend_track_step(
+            rgb, depth, state, prev, prev_Twc, pred, map_pos, prev.desc,
+            map_ok, cfg, tcfg.search_radius_fine)
+        small = res.packed_small.cpu().numpy()
+        n_inl = int(small[32])
+        if n_inl >= tcfg.min_tracked_points:
+            Tcw = res.poses[1]
+            vel = Tcw @ prev_Twc
+            Twc = np.linalg.inv(small[16:32].reshape(4, 4))
+        else:
+            Tcw, lost = pred, lost + 1
+            Twc = np.linalg.inv(pred.cpu().numpy())
+        sync()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        cur = frame_from_frontend(out)
+        if timed:
+            t0 = time.perf_counter()
+            again = tracking.full_track_step(
+                prev, prev_Twc, cur, pred, map_pos, prev.desc, map_ok, cam,
+                tcfg, tcfg.search_radius_fine)
+            again.packed_small.cpu()
+            sync()
+            track_ms.append(1e3 * (time.perf_counter() - t0))
+        poses.append(Twc)
+        inliers.append(n_inl)
+        matches.append(int(res.flags[0].sum()))
+        masks.append(out.dyna_mask)
+        prev = cur
+    return dict(poses=np.stack(poses), inliers=inliers, matches=matches,
+                lost=lost, step_ms=step_ms, track_ms=track_ms, masks=masks)
+
+
+def plain_odometry(torch, cfg, frames, device, detector=None) -> dict:
+    """Odometry through the entry points a user's script calls, a frame at a time:
+    the dynamic mask of ``detector`` (a ``DynaDetector``) dilated for
+    tracking, or a zero mask without one; ``extract_orb``, ``build_frame``,
+    ``OdometryTracker.track``."""
+    from sindslam_tpu_torch.frontend import orb
+    from sindslam_tpu_torch.frontend.dyna_detect import dilate_mask_for_tracking
+    from sindslam_tpu_torch.ops import image as im
+    from sindslam_tpu_torch.slam.frame import build_frame
+    from sindslam_tpu_torch.slam.tracking import OdometryTracker
+
+    import numpy as np
+
+    cam = cfg.camera
+    dev = torch.device(device)
+    tracker = OdometryTracker(cam, cfg.tracking, device=dev)
+    zero = torch.zeros((cam.height, cam.width), dtype=torch.int32, device=dev)
+    poses, inliers, matches, masks, lost = [], [], [], [], 0
+    for rgb, depth, _gt, _pose, t in frames:
+        rgb_t = torch.from_numpy(rgb).to(dev)
+        depth_t = torch.from_numpy(depth).to(dev)
+        mask = zero
+        if detector is not None:
+            mask, _labels = detector.detect(rgb_t, depth_t)
+            masks.append(mask)
+            mask = dilate_mask_for_tracking(mask, cfg.dyna)
+        feats = orb.extract_orb(im.rgb_to_gray(rgb_t), mask, cfg.orb,
+                                height=cam.height, width=cam.width)
+        Tcw, info = tracker.track(build_frame(feats, depth_t, cam, t,
+                                              device=dev))
+        lost += tracker.lost
+        poses.append(np.linalg.inv(Tcw))
+        inliers.append(info["n_inliers"])
+        matches.append(info["n_matches"])
+    return dict(poses=np.stack(poses), inliers=inliers, matches=matches,
+                lost=lost, masks=masks)
+
+
+def mask_iou(frames, masks) -> float:
+    """Mean IoU of the dynamic class against the ground truth over the
+    frames from the third on that have a mover."""
+    import numpy as np
+
+    ious = []
+    for (_rgb, _d, gt, _p, _t), m in list(zip(frames, masks))[2:]:
+        if gt.sum():
+            pred = m == 255
+            ious.append((gt & pred).sum() / max((gt | pred).sum(), 1))
+    return float(np.mean(ious))
+
+
+def ate_bound(jax_ate_m: float) -> float:
+    return max(2.0 * jax_ate_m, jax_ate_m + 0.002)
+
+
+def host_counts(torch, prof, n: int) -> dict:
+    """Per call, from a profile of ``n`` calls closed by one
+    ``torch.cuda.synchronize()``: device-to-host copies (device events) and
+    host synchronisations (CUDA runtime calls that wait, less the closing
+    one)."""
+    d2h = sum(1 for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "memcpy" in e.name.lower() and "dtoh" in e.name.lower())
+    syncs = sum(1 for e in prof.events()
+                if e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                              "cudaEventSynchronize"))
+    return dict(d2h=d2h / n, syncs=(syncs - 1) / n)
+
+
 def main() -> int:
     import torch
 
@@ -223,6 +464,11 @@ def main() -> int:
     from sindslam_tpu_torch.ops import cuda_kernels as ck
     from sindslam_tpu_torch.ops import image as im
     from sindslam_tpu_torch.ops.flow import pyramid_shapes
+    from sindslam_tpu_torch.evaluation.benchmark import ate_rmse
+    from sindslam_tpu_torch.frontend.dyna_detect import DynaDetector
+    from sindslam_tpu_torch.slam import tracking
+    from sindslam_tpu_torch.slam.frame import (frame_from_frontend,
+                                               unproject_to_world)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -232,6 +478,14 @@ def main() -> int:
     dev = torch.device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
+
+    t_start = [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        """Seconds of command time the phase just ended took."""
+        now = time.perf_counter()
+        print(f"[{phase}: {now - t_start[0]:.1f} s]", flush=True)
+        t_start[0] = now
 
     # ---- 2. build
     t0 = time.perf_counter()
@@ -245,6 +499,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
+    lap("build")
     # ---- 3. record main-path inputs, then kernel vs plain
     cfg = SystemConfig()
     frames, _scene = make_benchmark_sequence("dyn_walk", n_frames=N_FRAMES,
@@ -597,6 +852,7 @@ def main() -> int:
         err=err, ms=ms, plain_ms=pms, shape=(n, P, P), library_ms=lib_ms,
         bound=bound_ms(img_bytes + 2 * n * 4 + n * P * P * 4, 0))
 
+    lap("phase 3, kernels against plain versions")
     # ---- 4. the CUDA path against the port's CPU path on a small input
     ht, wt = 64, 128
     tiny = SystemConfig(
@@ -633,17 +889,20 @@ def main() -> int:
         check(agree >= 0.99 and lagree >= 0.99 and kiou >= 0.95,
               "CUDA path disagrees with the CPU path on the small input")
 
+    lap("phase 4, CUDA against CPU on a small input")
     # ---- 5. the main path, counted
     st = fp.init_state(cfg, im.rgb_to_gray(rgbs[0]))
     torch.cuda.synchronize()
     ck.reset_launch_counts()
-    masks, times = [], []
+    masks, times, kept = [], [], {}
     for i in range(N_FRAMES):
         t1 = time.perf_counter()
         out, st = fp.frontend_step(rgbs[i], depths[i], st, cfg)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t1)
         fe = out.features
+        if i in (5, 6):     # two consecutive frames for the tracking check
+            kept[i] = frame_from_frontend(out, frames[i][4])
         check(tuple(out.dyna_mask.shape) == (480, 640), "dyna_mask shape")
         check(bool(torch.isin(out.dyna_mask, torch.tensor(
             [0, 125, 255], device=dev, dtype=torch.int32)).all()),
@@ -680,12 +939,7 @@ def main() -> int:
     k1_levels = {hw: tuple(c) for hw, c in ck.SOR_INNER_CUDA_LAUNCHES.items()}
     check(set(k1_levels) == set(levels),
           f"sor_inner ran at {sorted(k1_levels)}, not at every level")
-    ious = []
-    for (_rgb, _d, gt, _p, _t), m in list(zip(frames, masks))[2:]:
-        if gt.sum():
-            pred = m == 255
-            ious.append((gt & pred).sum() / max((gt | pred).sum(), 1))
-    iou = float(np.mean(ious))
+    iou = mask_iou(frames, masks)
     check(iou >= IOU_FLOOR, f"mask IoU {iou:.4f} below {IOU_FLOOR}")
     steady = times[2:]
     fps = len(steady) / sum(steady)
@@ -721,6 +975,7 @@ def main() -> int:
     print(f"sor_inner in all: {k1_cuda} CUDA launches in {k1_calls} calls, "
           f"{k1_cuda / N_FRAMES:.1f} a frame", flush=True)
 
+    lap("phase 5, the main path")
     # ---- 6. where the time goes: frames 2-6 again under torch.profiler
     n_prof = 5
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -761,6 +1016,121 @@ def main() -> int:
             t_h2d, n_h2d = t_h2d + t, n_h2d + c
     print(f"  host-to-device copies: {n_h2d / n_prof:.1f} a frame, "
           f"{t_h2d / 1e3 / n_prof:.3f} ms/frame")
+    fe_host = host_counts(torch, prof, n_prof)
+    print(f"  device-to-host copies: {fe_host['d2h']:.1f} a frame, host "
+          f"synchronisations: {fe_host['syncs']:.1f} a frame", flush=True)
+
+    lap("phase 6, the front-end under the profiler")
+    # ---- 7. tracking on the card against tracking on the CPU
+    trk = tracking_cuda_vs_cpu(torch, kept[5], kept[6], cfg.camera,
+                               cfg.tracking, cfg.tracking.search_radius_fine)
+    print(f"tracking, card against CPU (frames 5 -> 6 of the 640x480 run, "
+          f"{trk['n_points']} slots): match indices equal before and after "
+          f"the rotation filter, {trk['n_matches']} matches and "
+          f"{trk['n_inliers']} inliers on both, map step {trk['map_matches']} "
+          f"matches and {trk['map_inliers']} inliers with equal flags and "
+          f"equal decoded words, poses within {trk['pose_err']:.3g} "
+          f"(tol {POSE_TOL})", flush=True)
+
+    lap("phase 7, tracking on the card against the CPU")
+    # ---- 8. odometry at full width, counted
+    ts = np.array([f[4] for f in frames])
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    masked = fused_odometry(torch, cfg, frames, dev, timed=True)
+    odo_counts = dict(ck.LAUNCHES)
+    for name in MAIN_PATH:
+        check(odo_counts[name] > 0,
+              f"kernel {name} never launched on the odometry path")
+    unmasked = plain_odometry(torch, cfg, frames, dev)
+    ate_m = ate_rmse(frames, ts, masked["poses"])
+    ate_u = ate_rmse(frames, ts, unmasked["poses"])
+    for name, run in (("masked", masked), ("unmasked", unmasked)):
+        check(np.isfinite(run["poses"]).all(), f"{name} odometry: non-finite pose")
+        print(f"odometry {name}: {N_FRAMES} frames 640x480 dyn_walk, ATE rmse "
+              f"{ate_rmse(frames, ts, run['poses']):.6f} m, {run['lost']} "
+              f"frames lost, matches {run['matches']}, inliers "
+              f"{run['inliers']}", flush=True)
+        check(run["lost"] == 0, f"{name} odometry lost {run['lost']} frames")
+    fe_ms = 1e3 * statistics.median(steady)
+    track_ms = statistics.median(masked["track_ms"][1:])
+    step_ms = statistics.median(masked["step_ms"][1:])
+    print(f"odometry masked: median ms per frame over frames 2-{N_FRAMES - 1}, "
+          f"host clock after synchronize: front-end {fe_ms:.2f} (phase 5), "
+          f"tracking step {track_ms:.2f} (full_track_step run again alone on "
+          f"the frame's inputs), whole fused step {step_ms:.2f}; masked "
+          f"{'beats' if ate_m < ate_u else 'does not beat'} unmasked on these "
+          f"{N_FRAMES} frames ({ate_m:.6f} against {ate_u:.6f} m); kernel "
+          f"launches on this path {odo_counts}", flush=True)
+    odo_iou = mask_iou(frames, [m.cpu().numpy() for m in masked["masks"]])
+    print(f"odometry masked: mask IoU vs ground truth {odo_iou:.4f}; bound on "
+          f"the ATE {ate_bound(JAX_MASKED_ATE_M):.6f} m = max(2 x, x + 2 mm) of "
+          f"the JAX package's {JAX_MASKED_ATE_M:.6f} m on the same frames (JAX, "
+          f"CPU; its unmasked run: {JAX_UNMASKED_ATE_M:.6f} m)", flush=True)
+    check(ate_m <= ate_bound(JAX_MASKED_ATE_M),
+          f"masked ATE {ate_m:.6f} m above the bound "
+          f"{ate_bound(JAX_MASKED_ATE_M):.6f} m")
+
+    lap("phase 8, odometry")
+    # ---- 9. the stateful detector path
+    dyna = plain_odometry(torch, cfg, frames[:N_DYNA_FRAMES], dev,
+                          detector=DynaDetector(cfg))
+    dyna_iou = mask_iou(frames[:N_DYNA_FRAMES],
+                        [m.cpu().numpy() for m in dyna["masks"]])
+    print(f"DynaDetector path: {N_DYNA_FRAMES} frames through detect + "
+          f"dilate_mask_for_tracking + extract_orb + build_frame + "
+          f"OdometryTracker.track: mask IoU vs ground truth {dyna_iou:.4f} "
+          f"(frames 2-{N_DYNA_FRAMES - 1}), ATE rmse "
+          f"{ate_rmse(frames[:N_DYNA_FRAMES], ts[:N_DYNA_FRAMES], dyna['poses']):.6f}"
+          f" m, {dyna['lost']} lost, inliers {dyna['inliers']}", flush=True)
+    check(dyna_iou >= IOU_FLOOR, f"DynaDetector mask IoU {dyna_iou:.4f} below "
+                                 f"{IOU_FLOOR}")
+    check(dyna["lost"] == 0, f"DynaDetector path lost {dyna['lost']} frames")
+
+    lap("phase 9, the DynaDetector path")
+    # ---- 10. the tracking step alone under the profiler
+    eye = torch.eye(4, device=dev)
+    prev_f, cur_f = kept[5], kept[6]
+    map_pos = unproject_to_world(prev_f, eye, cfg.camera)
+    map_ok = prev_f.valid & (prev_f.depth > 0)
+
+    def track_once():
+        return tracking.full_track_step(
+            prev_f, eye, cur_f, eye, map_pos, prev_f.desc, map_ok, cfg.camera,
+            cfg.tracking, cfg.tracking.search_radius_fine
+        ).packed_small.cpu()
+
+    n_track = 3     # the profiler takes ~6 s of command time a step
+    track_once()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        for _ in range(n_track):
+            track_once()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t1)
+    trk_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    trk_busy = busy_us(trk_events)
+    trk_host = host_counts(torch, prof, n_track)
+    print(f"profiled {n_track} tracking steps (full_track_step + its one "
+          f"readback): {wall_us / 1e3 / n_track:.2f} ms/step under the "
+          f"profiler, device busy {trk_busy / 1e3 / n_track:.2f} ms/step (idle "
+          f"share {1 - trk_busy / wall_us:.3f}), "
+          f"{len(trk_events) / n_track:.0f} device events/step, "
+          f"{trk_host['d2h']:.1f} device-to-host copies and "
+          f"{trk_host['syncs']:.1f} host synchronisations a step (front-end: "
+          f"{len(dev_events) / n_prof:.0f} events, {fe_host['d2h']:.1f} copies, "
+          f"{fe_host['syncs']:.1f} synchronisations a frame)", flush=True)
+    by_name = {}
+    for e in trk_events:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"  {t / 1e3 / n_track:8.3f} ms/step {c / n_track:7.1f} "
+              f"calls/step  {name[:80]}")
+
+    lap("phase 10, the tracking step under the profiler")
 
     def entry(name):
         r = results[name]

@@ -1,6 +1,7 @@
-"""Carry the configuration and the recurrent front-end state across from
-the JAX package. The system has no weights: these two are all that crosses,
-and with them a test steps both front-ends from the same state."""
+"""Carry the configuration, the recurrent front-end and detector state and
+a frame's features across from the JAX package. The system has no weights:
+these are all that crosses, and with them a test steps both packages from
+the same state."""
 
 from __future__ import annotations
 
@@ -12,7 +13,9 @@ import torch
 
 from sindslam_tpu_torch import resolve_device
 from sindslam_tpu_torch.config import SystemConfig
+from sindslam_tpu_torch.frontend.dyna_detect import DynaDetector
 from sindslam_tpu_torch.frontend.pipeline import FrontendState
+from sindslam_tpu_torch.slam.frame import FrameData
 
 
 def config_from_dict(d: Mapping[str, Any]) -> SystemConfig:
@@ -27,16 +30,60 @@ def config_from_dict(d: Mapping[str, Any]) -> SystemConfig:
     return SystemConfig(**kw)
 
 
+def _to(dev):
+    def t(x, dtype=None):
+        return torch.from_numpy(np.array(x)).to(dev, dtype)   # a writable copy
+    return t
+
+
+def frame_from_numpy(f: Any, device=None) -> FrameData:
+    """The port's ``FrameData`` from a reference ``FrameData`` whose arrays
+    were converted to numpy. The uint32 descriptor words become int32 by
+    view: the same bits."""
+    t = _to(resolve_device(device))
+    desc = np.ascontiguousarray(f.desc)
+    if desc.dtype == np.uint32:
+        desc = desc.view(np.int32)
+    return FrameData(
+        xy=t(f.xy, torch.float32), level=t(f.level, torch.int32),
+        angle=t(f.angle, torch.float32), desc=t(desc, torch.int32),
+        valid=t(f.valid, torch.bool), depth=t(f.depth, torch.float32),
+        ur=t(f.ur, torch.float32), timestamp=float(f.timestamp))
+
+
+def detector_state_from_numpy(det: Any, cfg: SystemConfig, device=None,
+                              seed: int = 0) -> DynaDetector:
+    """The port's ``DynaDetector`` holding the private state of a reference
+    one (``_pyr_m1``, ``_prev_labels``, ...; read with ``np.asarray``). The
+    reference's PRNG key does not carry over."""
+    out = DynaDetector(cfg, device=device, seed=seed)
+    t = _to(out.device)
+
+    def pyr(p):
+        return None if p is None else tuple(t(x, torch.float32) for x in p)
+
+    out._pyr_m1 = pyr(det._pyr_m1)
+    out._pyr_m2 = pyr(det._pyr_m2)
+    out._prev_large = bool(np.asarray(det._prev_large))
+    out._prev_labels = (None if det._prev_labels is None
+                        else t(det._prev_labels, torch.int32))
+    out._prev_high = t(det._prev_high, torch.bool)
+    out._prev_mask = t(det._prev_mask, torch.int32)
+    out._prev_ratio_img = t(det._prev_ratio_img, torch.float32)
+    out._dyn_score = t(det._dyn_score, torch.float32)
+    out._dyn_depth = t(det._dyn_depth, torch.float32)
+    out._flow_w = tuple(t(x, torch.float32) for x in det._flow_w)
+    out._frame_idx = int(det._frame_idx)
+    return out
+
+
 def state_from_numpy(s: Any, device=None, seed: int = 0) -> FrontendState:
     """The port's ``FrontendState`` from a reference ``FrontendState`` whose
     arrays were converted to numpy (e.g. ``jax.tree.map(np.asarray, st)``).
     The reference's PRNG key does not carry over: the port's generator is
     seeded with ``seed``."""
     dev = resolve_device(device)
-
-    def t(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-
+    t = _to(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return FrontendState(

@@ -292,18 +292,18 @@ def extract_orb(gray: torch.Tensor, dyna_mask: torch.Tensor, cfg: ORBConfig,
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
-    """Bit count of the low 32 bits of an int64 tensor."""
-    x = x & 0xFFFFFFFF
+    """Bit count of each int32 word. The shifts of int32 are arithmetic, so
+    every shifted value is masked before use; the byte-sum multiply wraps and
+    leaves the count (<= 32) in the top byte, which is then non-negative."""
     x = x - ((x >> 1) & 0x55555555)
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+    x = (x + ((x >> 4) & 0x0F0F0F0F)) & 0x0F0F0F0F
+    return (x * 0x01010101) >> 24
 
 
 def hamming_distance_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor
                             ) -> torch.Tensor:
     """(Na, 8) x (Nb, 8) int32 descriptor words -> (Na, Nb) int32 Hamming
     distances."""
-    x = torch.bitwise_xor(desc_a[:, None, :].to(torch.int64),
-                          desc_b[None, :, :].to(torch.int64))
-    return torch.sum(_popcount32(x), -1).to(torch.int32)
+    x = torch.bitwise_xor(desc_a[:, None, :], desc_b[None, :, :])
+    return torch.sum(_popcount32(x), -1, dtype=torch.int32)

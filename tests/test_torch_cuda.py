@@ -11,7 +11,9 @@ Tolerances as in ``tests/test_torch_kernels.py``: K1 atol 1e-4 / rtol
 regimes (one block for a small level, tiles with a halo for a large one),
 K2-K4 and the fused BRIEF exact: K2 at budgets under, at and between
 multiples of its sweeps per launch and where the budget binds, K3 on one
-level and on an atlas of levels in one launch.
+level and on an atlas of levels in one launch. Tracking on the card is held
+against tracking on the CPU by the check ``chip_smoke.py`` runs: equal match
+indices, inlier sets and packed words, poses within 1e-4.
 """
 
 import numpy as np
@@ -248,3 +250,38 @@ def test_fast_nms_atlas_and_single_level(cuda_device):
         ck.fast_nms(img, 7.0, 20.0, levels=((200, 30, 40),))
     with pytest.raises(ValueError, match="contiguous"):
         ck.fast_nms(img[:, :40], 7.0, 20.0)
+
+
+@pytest.mark.cuda
+def test_tracking_on_the_card_equals_tracking_on_the_cpu(cuda_device):
+    """Two frames of a static synthetic scene at 320x240: ORB on the card
+    (K3, K4), then the matcher, ``track_against_frame`` and
+    ``full_track_step`` on both devices."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from sindslam_tpu_torch.datasets.synthetic import make_benchmark_sequence
+    from sindslam_tpu_torch.evaluation.benchmark import scaled_system_config
+    from sindslam_tpu_torch.frontend import orb
+    from sindslam_tpu_torch.ops import image as im
+    from sindslam_tpu_torch.slam.frame import build_frame
+
+    cfg = scaled_system_config(0.5, n_features=500)
+    cam = cfg.camera
+    frames, _scene = make_benchmark_sequence("static", n_frames=2, seed=1,
+                                             scale=0.5)
+    zero = torch.zeros((cam.height, cam.width), dtype=torch.int32,
+                       device=cuda_device)
+    fs = []
+    for rgb, depth, _gt, _pose, t in frames:
+        g = im.rgb_to_gray(torch.from_numpy(rgb).to(cuda_device))
+        feats = orb.extract_orb(g, zero, cfg.orb, height=cam.height,
+                                width=cam.width)
+        fs.append(build_frame(feats, depth, cam, t))
+        assert fs[-1].xy.device.type == "cuda"
+    out = chip_smoke.tracking_cuda_vs_cpu(torch, fs[0], fs[1], cam,
+                                          cfg.tracking,
+                                          cfg.tracking.search_radius_fine)
+    assert out["pose_err"] <= chip_smoke.POSE_TOL and out["n_inliers"] >= 30

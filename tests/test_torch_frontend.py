@@ -114,10 +114,21 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "examples", "rgbd_odometry_torch.py")
+    yield os.path.join(ROOT, "tools", "torch_probe_sor_inner.py")
+    yield os.path.join(ROOT, "tools", "torch_probe_pose_solve.py")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     bad = []
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for sub in ("geometry/se3.py", "geometry/camera.py", "slam/frame.py",
+                "slam/matching.py", "slam/optimizer.py", "slam/tracking.py",
+                "frontend/dyna_detect.py", "datasets/associate.py",
+                "datasets/tum.py", "evaluation/ate.py", "evaluation/rpe.py",
+                "evaluation/trajectory.py", "evaluation/benchmark.py",
+                "utils/profiling.py", "convert.py"):
+        assert os.path.join("sindslam_tpu_torch", *sub.split("/")) in scanned
     for path in _port_sources():
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -122,6 +122,59 @@ def test_cc_labels_plain_serpentine_at_budget(n_sweeps, n_components):
     assert (got[~mask] == 0).all()
 
 
+def test_cc_labels_is_the_kernels_counterpart_not_the_cpu_twins():
+    """Which of the JAX package's two component paths the port follows.
+
+    In ``rag_merge`` the JAX package runs ``cc_labels_pallas`` (768 exact
+    Jacobi sweeps) on the TPU and ``components_from_labels(n_iters=32)``
+    (pointer jumping every 5th sweep) on the CPU. A 60x80 half-resolution
+    style input holds a serpentine of cluster 1 whose in-component path (567
+    pixels) is longer than the twin's reach (32 sweeps + 6 doublings) and
+    shorter than 768, beside two compact regions. The port's plain version
+    equals the Pallas kernel and joins the serpentine; the CPU twin leaves
+    it in several pieces of which more than one passes the minimum-area
+    filter, which is what shifts region numbers when the two front-ends are
+    compared on the CPU at full size."""
+    from sindslam_tpu.frontend.rag_merge import components_from_labels
+
+    h, w = 60, 80
+    labels = np.zeros((h, w), np.int32)
+    mask = np.zeros((h, w), bool)
+    snake = _serpentine(14, 80)                  # rows 0..13
+    mask[2:16] = snake
+    labels[2:16] = 1
+    mask[20:40, 5:45] = True                     # a compact region, cluster 0
+    mask[20:40, 45:75] = True                    # touching it, cluster 2
+    labels[20:40, 45:75] = 2
+    mask[45:55, 10:70] = True                    # and one of cluster 1 again
+    labels[45:55, 10:70] = 1
+    path = int(snake.sum())
+    assert path == 567 and 32 + 2 ** 8 < path < 768
+    seed = _seed(mask)
+    got = ck.cc_labels_plain(None, torch.from_numpy(mask),
+                             torch.from_numpy(labels), 768).numpy()
+    ref = np.asarray(pk.cc_labels_pallas(jnp.asarray(seed), jnp.asarray(mask),
+                                         jnp.asarray(labels), n_sweeps=768,
+                                         interpret=True))
+    np.testing.assert_array_equal(got, ref)
+    twin = np.asarray(components_from_labels(jnp.asarray(labels),
+                                             jnp.asarray(mask), n_iters=32))
+
+    def areas(comp, where):
+        _ids, n = np.unique(comp[where & (comp > 0)], return_counts=True)
+        return n
+
+    on_snake = np.zeros((h, w), bool)
+    on_snake[2:16] = snake
+    assert len(areas(got, on_snake)) == 1
+    assert len(areas(got, mask)) == 4
+    min_area = 80 / 4.0      # DynaConfig.min_cluster_area at half resolution
+    split = areas(twin, on_snake)
+    assert len(split) > 1 and (split >= min_area).sum() > 1, split
+    # off the serpentine the two agree: the compact regions close in both
+    np.testing.assert_array_equal(twin[~on_snake], got[~on_snake])
+
+
 def _cc_case(h, w, seed, n_labels=3, fill=0.7):
     rng = np.random.default_rng(seed)
     labels = (rng.random((h, w)) * n_labels).astype(np.int32)
