@@ -48,7 +48,18 @@
    ``OdometryTracker.track`` and holds the mask IoU as phase 5 does;
 10. profiles the tracking step alone (device events, device-to-host copies
    and synchronisations per call) next to the front-end's counts;
-11. prints a ``{"kernels_off_main_path": [...]}`` line for the standalone
+11. zeroes the launch counters and runs the port's ``accuracy_pair(
+   "dyn_walk", n_frames=12)`` on the card: full SLAM (``SlamSystem``:
+   keyframes, triangulation, local BA, BoW indexing, ``shutdown``'s joint
+   global BA) masked and unmasked; prints both ATEs, keyframes, map points,
+   frames lost, ms per frame, ms per local BA call and for the global BA,
+   and, under the profiler, the device events and host synchronisations of
+   one local and one global solve and of their readback; holds the run's BA
+   problems on the card against the CPU; fails on a lost frame, on a kernel
+   that did not launch, on a masked ATE above the bound derived from the JAX
+   package's SLAM on the same frames, and when masked does not beat
+   unmasked;
+12. prints a ``{"kernels_off_main_path": [...]}`` line for the standalone
    patch gather (the main path reaches its loader only through the fused
    BRIEF kernel, so its launch count there is 0), a ``{"kernels": [...]}``
    line for the kernels the main path launches, then as its last line
@@ -90,12 +101,22 @@ N_FRAMES = 12
 IOU_FLOOR = 0.5
 N_DYNA_FRAMES = 6
 POSE_TOL = 1e-4
+BA_POINT_TOL = 1e-3
 # ATE rmse of the JAX package's own odometry on the same 12 frames (dyn_walk,
 # seed 0, 640x480, fused front-end + tracking step, integrated as in
 # ``fused_odometry`` below): JAX, CPU backend, printed by
 # ``tools/torch_odometry_reference.py``. An accuracy, not a time.
 JAX_MASKED_ATE_M = 0.003571
 JAX_UNMASKED_ATE_M = 0.020642
+# The JAX package's full SLAM on the same 12 frames: ``accuracy_pair(
+# "dyn_walk", n_frames=12)`` (default config, 1500 features; masked and
+# unmasked ``run_sequence_slam``, each closed by ``shutdown``'s global BA):
+# JAX, CPU backend, printed by ``tools/torch_slam_reference.py`` with its
+# keyframes and map points. Accuracies and counts, not times.
+JAX_SLAM_MASKED_ATE_M = 0.011157
+JAX_SLAM_UNMASKED_ATE_M = 0.015135
+JAX_SLAM_KEYFRAMES = (4, 3)         # masked, unmasked
+JAX_SLAM_MAP_POINTS = (356, 875)
 
 
 def check(cond: bool, what: str) -> None:
@@ -304,6 +325,67 @@ def tracking_cuda_vs_cpu(torch, prev, cur, cam, cfg, radius,
                 map_inliers=int(g["flags"][1].sum()), n_points=n_pts)
 
 
+def ba_cuda_vs_cpu(torch, problem, cam, cfg, joint: bool = False,
+                   devices=("cuda", "cpu")) -> dict:
+    """``local_bundle_adjustment`` (or, with ``joint``, ``joint_global_ba``
+    at ``cfg.gba_iterations`` x ``cfg.gba_cg_iters``) of one ``BAProblem``
+    in float32 on the card and on the CPU (``devices``; the CPU tests pass
+    the CPU twice to run the checks themselves), and in float64 on the CPU.
+    Raises unless the inlier sets are equal, the poses agree within
+    ``POSE_TOL`` (tangent norm), ``mean_chi2`` within 1e-3 relative, every
+    point within ``BA_POINT_TOL`` m plus the CPU's own distance from the
+    float64 result (a weakly observed point, such as a far mono one, sits
+    centimetres from it in float32 on either device), and the observed
+    points within 1e-4 m of each other on average; returns what it compared.
+    The card sums with atomic adds, so the order of its sums differs from
+    the CPU's and from one run to the next."""
+    from sindslam_tpu_torch.geometry import se3
+    from sindslam_tpu_torch.slam import ba, gba
+
+    got = []
+    for dev, dt in ((devices[0], torch.float32), (devices[1], torch.float32),
+                    ("cpu", torch.float64)):
+        p = type(problem)(*(t.to(dev, dt) if t.is_floating_point()
+                            else t.to(dev) for t in problem))
+        if joint:
+            r = gba.joint_global_ba(p, cam, cfg, n_iters=cfg.gba_iterations,
+                                    n_cg=cfg.gba_cg_iters)
+        else:
+            r = ba.local_bundle_adjustment(p, cam, cfg)
+        got.append(dict(poses=r.poses.cpu().double(),
+                        points=r.points.cpu().double(),
+                        inl=r.obs_inlier.cpu(), chi2=float(r.mean_chi2)))
+    g, c, c64 = got
+    what = "global BA" if joint else "local BA"
+    check(torch.equal(g["inl"], c["inl"]),
+          f"{what}: inlier sets differ between the card and the CPU "
+          f"({int((g['inl'] != c['inl']).sum())} observations)")
+    # largest |log(card_k inv(cpu_k))|: translation and rotation in one norm
+    pose_err = float(torch.linalg.norm(se3.se3_log(
+        g["poses"].float() @ se3.se3_inverse(c["poses"].float())), dim=-1).max())
+    check(pose_err <= POSE_TOL, f"{what}: poses differ by {pose_err}")
+    chi2_rel = abs(g["chi2"] - c["chi2"]) / max(abs(c["chi2"]), 1e-12)
+    check(chi2_rel <= 1e-3, f"{what}: mean_chi2 {g['chi2']} on the card, "
+                            f"{c['chi2']} on the CPU")
+    err = torch.linalg.norm(g["points"] - c["points"], dim=-1)
+    f32 = torch.linalg.norm(c["points"] - c64["points"], dim=-1)
+    seen = torch.zeros(err.shape[0], dtype=torch.bool)
+    seen[problem.obs_pt.cpu().long()[problem.obs_valid.cpu()]] = True
+    worst = int(torch.argmax(err - f32))
+    check(bool((err <= BA_POINT_TOL + f32).all()),
+          f"{what}: point {worst} differs by {float(err[worst])} m between "
+          f"the card and the CPU, the CPU's float32 by {float(f32[worst])} m "
+          f"from float64")
+    mean_err = float(err[seen].mean())
+    check(mean_err <= 1e-4, f"{what}: observed points differ by {mean_err} m "
+                            f"on average")
+    check(int(c["inl"].sum()) >= 30, f"{what} case is trivial")
+    return dict(pose_err=pose_err, point_err=float(err.max()),
+                point_mean_err=mean_err, f32_err=float(f32.max()),
+                chi2_rel=chi2_rel, n_inliers=int(c["inl"].sum()),
+                mean_chi2=c["chi2"], n_points=int(seen.sum()))
+
+
 def fused_odometry(torch, cfg, frames, device, timed=False) -> dict:
     """Masked odometry over ``frames``: one ``fused_frontend_track_step`` a
     frame (the map being the previous frame's unprojected points), integrated
@@ -444,6 +526,85 @@ def host_counts(torch, prof, n: int) -> dict:
                 if e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                               "cudaEventSynchronize"))
     return dict(d2h=d2h / n, syncs=(syncs - 1) / n)
+
+
+class BAWatch:
+    """Wraps ``local_map.local_bundle_adjustment`` and
+    ``gba.joint_global_ba`` for the SLAM runs: each call is timed by the host
+    clock from a ``torch.cuda.synchronize()`` before it to one after it
+    (queueing and device work; the system itself reads the result back a
+    frame or two later), and its problem and arguments are kept."""
+
+    def __init__(self, torch):
+        from sindslam_tpu_torch.slam import gba, local_map
+
+        self.torch = torch
+        self.targets = ((local_map, "local_bundle_adjustment", "local"),
+                        (gba, "joint_global_ba", "global"))
+        self.saved = {}
+        self.calls = {"local": [], "global": []}
+
+    def __enter__(self):
+        for mod, name, kind in self.targets:
+            orig = getattr(mod, name)
+            self.saved[(mod, name)] = orig
+            setattr(mod, name, self._wrap(kind, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), orig in self.saved.items():
+            setattr(mod, name, orig)
+
+    def _wrap(self, kind, orig):
+        torch = self.torch
+
+        def call(problem, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = orig(problem, *args, **kw)
+            torch.cuda.synchronize()
+            self.calls[kind].append(dict(
+                ms=1e3 * (time.perf_counter() - t0), problem=problem,
+                args=args, kw=kw, fn=orig,
+                shape=(problem.poses.shape[0], problem.points.shape[0],
+                       problem.obs_kf.shape[0])))
+            return res
+        return call
+
+
+def profile_call(torch, fn, n: int = 3) -> dict:
+    """``n`` calls of ``fn`` (after a warm call) under ``torch.profiler``,
+    closed by one ``torch.cuda.synchronize()``: per call, wall ms, device
+    events, device busy ms, device-to-host copies and host synchronisations.
+    The profile's closing ``synchronize`` shows as more than one
+    synchronisation, so the count of a profile of calls that do nothing is
+    subtracted."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def run(f):
+        f()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t1 = time.perf_counter()
+            for _ in range(n):
+                f()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t1)
+        return prof, wall_us
+
+    prof0, _ = run(lambda: None)
+    prof, wall_us = run(fn)
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    base = host_counts(torch, prof0, n)
+    counts = host_counts(torch, prof, n)
+    # copies as the host issued them (the trace's device-side memcpy events
+    # of a short profile can be missing)
+    copies = sum(1 for e in prof.events() if e.name == "cudaMemcpyAsync")
+    return dict(wall_ms=wall_us / 1e3 / n, events=len(events) / n,
+                busy_ms=busy_us(events) / 1e3 / n, copies=copies / n,
+                syncs=counts["syncs"] - base["syncs"])
 
 
 def main() -> int:
@@ -1131,6 +1292,104 @@ def main() -> int:
               f"calls/step  {name[:80]}")
 
     lap("phase 10, the tracking step under the profiler")
+    # ---- 11. full SLAM: accuracy_pair of the port on the card
+    from sindslam_tpu_torch.evaluation import benchmark as bench
+
+    infos = []
+    real_run = bench.run_sequence_slam
+
+    def run_kept(*args, **kw):
+        out = real_run(*args, **kw)
+        infos.append(out[2])
+        return out
+
+    bench.run_sequence_slam = run_kept
+    try:
+        with BAWatch(torch) as watch:
+            torch.cuda.synchronize()
+            ck.reset_launch_counts()
+            acc = bench.accuracy_pair("dyn_walk", n_frames=N_FRAMES)
+            slam_counts = dict(ck.LAUNCHES)
+    finally:
+        bench.run_sequence_slam = real_run
+    for name in MAIN_PATH:
+        check(slam_counts[name] > 0,
+              f"kernel {name} never launched in the SLAM runs")
+    info_m, info_u = infos
+    for key in ("ate_masked_m", "ate_unmasked_m", "rpe_masked_m", "mask_iou"):
+        check(np.isfinite(acc[key]), f"SLAM: {key} is not finite")
+    kf_m, kf_u = acc["n_keyframes"], acc["n_keyframes_unmasked"]
+    print(f"SLAM accuracy_pair('dyn_walk', n_frames={N_FRAMES}), 640x480, "
+          f"default config: ATE masked {acc['ate_masked_m']:.6f} m, unmasked "
+          f"{acc['ate_unmasked_m']:.6f} m, RPE masked "
+          f"{acc['rpe_masked_m']:.6f} m, mask IoU {acc['mask_iou']:.4f}; "
+          f"keyframes {kf_m} / {kf_u}, map points {acc['n_points_masked']} / "
+          f"{acc['n_points_unmasked']}, frames lost {acc['n_lost_masked']} / "
+          f"{acc['n_lost_unmasked']} (masked / unmasked); the JAX package on "
+          f"the same frames (CPU): ATE {JAX_SLAM_MASKED_ATE_M:.6f} / "
+          f"{JAX_SLAM_UNMASKED_ATE_M:.6f} m, keyframes {JAX_SLAM_KEYFRAMES}, "
+          f"map points {JAX_SLAM_MAP_POINTS}", flush=True)
+    print(f"SLAM: K1-K4 launches during the two runs {slam_counts}",
+          flush=True)
+    for name, info in (("masked", info_m), ("unmasked", info_u)):
+        fs = 1e3 * np.asarray(info["frame_s"])
+        print(f"SLAM {name}: ms per frame (host clock after synchronize, "
+              f"median of frames 2-{N_FRAMES - 1}) {statistics.median(fs[2:]):.2f}"
+              f", first frame {fs[0]:.1f}, all {np.round(fs, 1).tolist()}",
+              flush=True)
+    check(acc["n_lost_masked"] == 0 and acc["n_lost_unmasked"] == 0,
+          f"SLAM lost frames: {acc['n_lost_masked']} masked, "
+          f"{acc['n_lost_unmasked']} unmasked")
+    check(acc["ate_masked_m"] <= ate_bound(JAX_SLAM_MASKED_ATE_M),
+          f"SLAM masked ATE {acc['ate_masked_m']:.6f} m above the bound "
+          f"{ate_bound(JAX_SLAM_MASKED_ATE_M):.6f} m = max(2 x, x + 2 mm) of "
+          f"the JAX package's {JAX_SLAM_MASKED_ATE_M:.6f} m")
+    check(acc["ate_masked_m"] < acc["ate_unmasked_m"],
+          "SLAM: masked ATE does not beat unmasked")
+    lba, gba_calls = watch.calls["local"], watch.calls["global"]
+    check(len(lba) > 0 and len(gba_calls) == 2,
+          f"SLAM: {len(lba)} local BA calls, {len(gba_calls)} global BA calls")
+    lms = [c["ms"] for c in lba]
+    print(f"SLAM local BA: {len(lba)} calls at (K, P, M) "
+          f"{sorted({c['shape'] for c in lba})}, ms per call (synchronize to "
+          f"synchronize) median {statistics.median(lms):.2f}, first "
+          f"{lms[0]:.2f}, all {np.round(lms, 2).tolist()}", flush=True)
+    print(f"SLAM global BA at shutdown: ms "
+          f"{[round(c['ms'], 2) for c in gba_calls]} at (K, P, M) "
+          f"{[c['shape'] for c in gba_calls]}, {gba_calls[0]['kw']}",
+          flush=True)
+    # local and global solves again under the profiler: the solve alone,
+    # then its one readback
+    for kind, c, n in (("local BA", lba[-1], 3), ("global BA", gba_calls[0], 1)):
+        solve = profile_call(torch, lambda: c["fn"](c["problem"], *c["args"],
+                                                    **c["kw"]), n)
+        res = c["fn"](c["problem"], *c["args"], **c["kw"])
+        rb = profile_call(torch, lambda: res.packed.cpu())
+        print(f"SLAM {kind} under the profiler at (K, P, M) {c['shape']}, "
+              f"{n} call(s): a solve {solve['wall_ms']:.2f} ms, "
+              f"{solve['events']:.0f} device events, device busy "
+              f"{solve['busy_ms']:.2f} ms (idle share "
+              f"{1 - solve['busy_ms'] / solve['wall_ms']:.3f}), "
+              f"{solve['copies']:.2f} cudaMemcpyAsync calls and "
+              f"{solve['syncs']:.2f} host synchronisations; a readback of "
+              f"packed: {rb['copies']:.2f} cudaMemcpyAsync calls, "
+              f"{rb['syncs']:.2f} synchronisations", flush=True)
+    # the BA problems of the run on the card against the CPU
+    for kind, c, joint in (("local", lba[-1], False),
+                           ("global", gba_calls[0], True)):
+        out = ba_cuda_vs_cpu(torch, c["problem"], cfg.camera, cfg.tracking,
+                             joint=joint)
+        print(f"SLAM {kind} BA, card against CPU on the run's problem "
+              f"{c['shape']}: inlier sets equal ({out['n_inliers']}), poses "
+              f"within {out['pose_err']:.3g} (tol {POSE_TOL}), the "
+              f"{out['n_points']} observed points within "
+              f"{out['point_mean_err']:.3g} m on average (tol 1e-4) and "
+              f"{out['point_err']:.3g} m at most (tol {BA_POINT_TOL} m + the "
+              f"CPU's float32 distance from float64, at most "
+              f"{out['f32_err']:.3g} m), mean_chi2 {out['mean_chi2']:.4f} "
+              f"within {out['chi2_rel']:.3g} relative", flush=True)
+
+    lap("phase 11, full SLAM")
 
     def entry(name):
         r = results[name]

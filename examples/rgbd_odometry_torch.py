@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
-"""RGB-D odometry on the PyTorch/CUDA port (``sindslam_tpu_torch``),
-the counterpart of ``examples/rgbd_odometry.py`` for frame-to-frame odometry.
+"""RGB-D odometry and SLAM on the PyTorch/CUDA port (``sindslam_tpu_torch``),
+the counterpart of ``examples/rgbd_odometry.py``.
 
 On a TUM-layout sequence:
 
     python examples/rgbd_odometry_torch.py --sequence /data/rgbd_dataset_fr3_walking_xyz \
         [--settings TUM3.yaml] [--assoc associations.txt] [--out traj.txt] \
-        [--dyna [--fused]] [--frames N] [--eval-ate] [--timing]
+        [--dyna [--fused]] [--slam] [--frames N] [--eval-ate] [--timing]
 
 or on the built-in synthetic scene (no dataset required):
 
     python examples/rgbd_odometry_torch.py --synthetic --frames 12 --out traj.txt
 
-It runs on the CUDA device unless ``--device cpu`` is given, and raises when
-there is none. ``--slam`` and ``--map`` are not ported yet and exit with a
-message.
+Without ``--slam`` it runs frame-to-frame odometry (``OdometryTracker``).
+With ``--slam`` it runs ``SlamSystem`` (keyframes, local map, local BA,
+BoW relocalization), then ``shutdown`` (global BA), and writes the
+trajectory and the keyframe trajectory (``<out>_keyframes.txt``); with
+``--dyna --fused --slam`` each frame is one ``track_fused`` call with the
+track readback deferred. It runs on the CUDA device unless ``--device cpu``
+is given, and raises when there is none. ``--map`` (dense mapping) is not
+ported yet and exits with a message.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ def main() -> int:
     ap.add_argument("--dyna", action="store_true",
                     help="enable dynamic-region detection (DynaDetect)")
     ap.add_argument("--slam", action="store_true",
-                    help="full SLAM (keyframes + local BA): not ported yet")
+                    help="full SLAM (keyframes + local BA + global BA at the end)")
     ap.add_argument("--map", dest="map_out",
                     help="dense voxel map to a .pcd: not ported yet")
     ap.add_argument("--fused", action="store_true",
@@ -57,13 +62,6 @@ def main() -> int:
                          "'cpu' for the plain PyTorch path")
     args = ap.parse_args()
 
-    if args.slam:
-        print("--slam is not available in the PyTorch port yet: SlamSystem "
-              "(slam/system.py with local_map.py, ba.py, triangulation.py) is "
-              "still to be ported, ROADMAP.md Queue 1 items 16-17. Use "
-              "examples/rgbd_odometry.py --slam for the JAX package.",
-              file=sys.stderr)
-        return 2
     if args.map_out:
         print("--map is not available in the PyTorch port yet: dense mapping "
               "(mapping/dense.py) is ROADMAP.md Queue 1 item 19. Use "
@@ -126,6 +124,11 @@ def main() -> int:
 
         dyna = DynaDetector(cfg, device=dev)
 
+    slam = None
+    if args.slam:
+        from sindslam_tpu_torch.slam.system import SlamSystem
+
+        slam = SlamSystem(cfg, device=dev)
     tracker = OdometryTracker(cam, cfg.tracking, device=dev)
     zero_mask = torch.zeros((cam.height, cam.width), dtype=torch.int32,
                             device=dev)
@@ -133,6 +136,29 @@ def main() -> int:
     timestamps, poses_twc = [], []
     t_total = t_detect = t_track = 0.0
     n_done = 0
+
+    if args.dyna and args.fused and slam is not None:
+        # front-end + tracking queued as one step a frame
+        # (SlamSystem.track_fused), the track readback deferred: the Tcw
+        # returned per frame is the motion-model prediction; the saved
+        # trajectory comes from slam.trajectory(), which replays the
+        # integrated poses
+        slam.deferred_track = True
+        for rgb, depth, ts in frames_iter:
+            t0 = time.time()
+            rgb_t = torch.from_numpy(np.ascontiguousarray(rgb)).to(dev)
+            d = torch.from_numpy(np.ascontiguousarray(depth)).to(dev, torch.float32)
+            with timer.stage("frontend+track (track_fused)"):
+                Tcw, is_kf, _out = slam.track_fused(rgb_t, d, ts)
+            t_total += time.time() - t0
+            t_track += time.time() - t0
+            timestamps.append(ts)
+            poses_twc.append(np.linalg.inv(Tcw))
+            n_done += 1
+            if n_done % 10 == 0 or slam.lost:
+                state = "LOST" if slam.lost else "ok"
+                print(f"[{n_done}] t={ts:.3f} {state} kf={is_kf}", flush=True)
+        frames_iter = []             # the generic loop below is skipped
 
     for rgb, depth, ts in frames_iter:
         t0 = time.time()
@@ -161,18 +187,38 @@ def main() -> int:
                                         height=cam.height, width=cam.width)
             frame = build_frame(feats, d, cam, ts, device=dev)
         with timer.stage("tracking"):
-            Tcw, info = tracker.track(frame)
+            if slam is not None:
+                Tcw, is_kf = slam.track_frame(frame, ts)
+                info = {"kf": is_kf}
+            else:
+                Tcw, info = tracker.track(frame)
         t_track += time.time() - t1
         t_total += time.time() - t0
         timestamps.append(ts)
         poses_twc.append(np.linalg.inv(Tcw))
         n_done += 1
-        if n_done % 10 == 0 or tracker.lost:
-            state = "LOST" if tracker.lost else "ok"
+        lost = slam.lost if slam is not None else tracker.lost
+        if n_done % 10 == 0 or lost:
+            state = "LOST" if lost else "ok"
             print(f"[{n_done}] t={ts:.3f} {state} {info}", flush=True)
 
-    write_tum_trajectory(args.out, np.array(timestamps), np.stack(poses_twc))
-    if args.dyna:
+    if slam is not None:
+        with timer.stage("shutdown (global BA)"):
+            slam.shutdown()
+        slam.save_trajectory_tum(args.out)
+        kf_out = args.out.replace(".txt", "") + "_keyframes.txt"
+        slam.save_keyframe_trajectory_tum(kf_out)
+        _ts, poses = slam.trajectory()
+        poses_twc = list(poses)
+        print(f"keyframes: {len(slam.map.keyframes)}, map points: "
+              f"{int(slam.map.valid.sum())}, frames lost: "
+              f"{sum(r.lost for r in slam.records)} | keyframe trajectory -> "
+              f"{kf_out}")
+    else:
+        write_tum_trajectory(args.out, np.array(timestamps), np.stack(poses_twc))
+    if args.dyna and args.fused and slam is not None:
+        split = f" (front-end + track {1000*t_track/n_done:.1f} ms)"
+    elif args.dyna:
         split = (f" (detect {1000*t_detect/n_done:.1f} ms, "
                  f"track {1000*t_track/n_done:.1f} ms)")
     else:

@@ -1,7 +1,9 @@
-"""Carry the configuration, the recurrent front-end and detector state and
-a frame's features across from the JAX package. The system has no weights:
-these are all that crosses, and with them a test steps both packages from
-the same state."""
+"""Carry the configuration, the recurrent front-end and detector state, a
+frame's features, a bundle-adjustment problem and a BoW vocabulary across
+from the JAX package. The system has no weights: these are all that crosses,
+and with them a test steps both packages from the same state. The map
+itself crosses as a file: ``SlamSystem.save_map`` writes the same ``.npz``
+layout in both packages and ``load_map`` reads either's."""
 
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ from sindslam_tpu_torch import resolve_device
 from sindslam_tpu_torch.config import SystemConfig
 from sindslam_tpu_torch.frontend.dyna_detect import DynaDetector
 from sindslam_tpu_torch.frontend.pipeline import FrontendState
+from sindslam_tpu_torch.slam.ba import BAProblem
+from sindslam_tpu_torch.slam.bow import Vocabulary
 from sindslam_tpu_torch.slam.frame import FrameData
 
 
@@ -99,3 +103,23 @@ def state_from_numpy(s: Any, device=None, seed: int = 0) -> FrontendState:
         flow_u_w=t(s.flow_u_w).to(torch.float32),
         flow_v_w=t(s.flow_v_w).to(torch.float32),
         generator=gen)
+
+
+def ba_problem_from_numpy(p: Any, device=None) -> BAProblem:
+    """The port's ``BAProblem`` from a reference ``BAProblem`` (or any
+    object with its fields) whose arrays were converted to numpy."""
+    t = _to(resolve_device(device))
+    return BAProblem(
+        poses=t(p.poses, torch.float32), points=t(p.points, torch.float32),
+        obs_kf=t(p.obs_kf, torch.int32), obs_pt=t(p.obs_pt, torch.int32),
+        obs_uv=t(p.obs_uv, torch.float32), obs_ur=t(p.obs_ur, torch.float32),
+        obs_level=t(p.obs_level, torch.int32),
+        obs_valid=t(p.obs_valid, torch.bool),
+        fixed_mask=t(p.fixed_mask, torch.bool))
+
+
+def vocabulary_from_numpy(v: Any) -> Vocabulary:
+    """The port's ``Vocabulary`` from a reference one: the same k, levels
+    and uint32 node words (host numpy in both packages)."""
+    return Vocabulary(k=int(v.k), levels=int(v.levels),
+                      nodes=[np.array(n, np.uint32) for n in v.nodes])

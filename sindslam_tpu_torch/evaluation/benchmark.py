@@ -1,15 +1,18 @@
-"""Accuracy helpers for the synthetic benchmark sequences, copied from
-``sindslam_tpu/evaluation/benchmark.py``: the scaled configuration, ATE and
-RPE of an estimated trajectory against the rendered frames' ground truth,
-and the dynamic-mask IoU. The runners that need the full SLAM system
-(``run_sequence_slam``, ``accuracy_pair``, the loop-closure pairs) are not
-here yet.
+"""Accuracy regression benchmark: masked-vs-unmasked ATE on named
+sequences, PyTorch port of ``sindslam_tpu/evaluation/benchmark.py``.
+
+The scaled configuration, ATE and RPE of an estimated trajectory against the
+rendered frames' ground truth, the dynamic-mask IoU, and the full-SLAM
+runners ``run_sequence_slam`` and ``accuracy_pair`` on the port's
+``SlamSystem`` (on CUDA unless ``device="cpu"``). The loop-closure pairs
+(``loop_closure_pair``, ``mono_loop_closure_pair``) need loop correction and
+monocular SLAM, which are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -78,6 +81,96 @@ def scaled_system_config(scale: float = 1.0, n_features: int = 1000
                                orb=orb, tracking=tracking)
 
 
+def run_sequence_slam(frames: List[tuple], cfg: SystemConfig,
+                      use_dyna: bool, use_gt_mask: bool = False,
+                      loop_closing: bool = True, device=None
+                      ) -> Tuple[np.ndarray, np.ndarray, Dict]:
+    """Run full SLAM over rendered frames.
+
+    frames: list of (rgb, depth, gt_dyn, T_wc, ts). Returns
+    (timestamps, est_Twc (F, 4, 4), info) where info carries per-frame masks
+    and keyframe count. use_gt_mask short-circuits DynaDetect with the
+    ground-truth dynamic mask (upper-bound reference point). Runs on
+    ``device`` (CUDA unless it says otherwise); ``info["frame_s"]`` is the
+    host time of each frame after the device finished it.
+    """
+    import time as _time
+
+    import torch
+
+    from sindslam_tpu_torch import resolve_device
+    from sindslam_tpu_torch.frontend import orb as orb_mod
+    from sindslam_tpu_torch.frontend.pipeline import frontend_step, init_state
+    from sindslam_tpu_torch.ops import image as im
+    from sindslam_tpu_torch.slam.frame import build_frame, frame_from_frontend
+    from sindslam_tpu_torch.slam.system import SlamSystem
+
+    dev = resolve_device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    cam = cfg.camera
+    slam = SlamSystem(cfg, device=dev)
+    slam.enable_loop_closing = loop_closing
+    state = None
+    masks = []
+    ts_out = []
+    frame_s: List[float] = []   # wall time per tracked frame (host+device)
+    for rgb, depth, gt_dyn, _pose, ts in frames:
+        sync()
+        _t0 = _time.perf_counter()
+        rgb_t = torch.from_numpy(np.ascontiguousarray(rgb)).to(dev)
+        d = torch.from_numpy(np.ascontiguousarray(depth)).to(dev, torch.float32)
+        g = im.rgb_to_gray(rgb_t)
+        if use_gt_mask:
+            gt = torch.from_numpy(np.asarray(gt_dyn)).to(dev)
+            mask = torch.where(gt, cfg.dyna.mask_dynamic,
+                               torch.where(d > 0, cfg.dyna.mask_static,
+                                           cfg.dyna.mask_invalid)
+                               ).to(torch.int32)
+            feats = orb_mod.extract_orb(g, mask, cfg.orb,
+                                        height=cam.height, width=cam.width)
+        elif use_dyna:
+            if state is None:
+                state = init_state(cfg, g, device=dev)
+            out, state = frontend_step(rgb_t, d, state, cfg)
+            mask = out.dyna_mask
+            frame = frame_from_frontend(out, ts)
+            slam.track_frame(frame, ts)
+            masks.append(mask.cpu().numpy())
+            ts_out.append(ts)
+            sync()
+            frame_s.append(_time.perf_counter() - _t0)
+            continue
+        else:
+            mask = torch.zeros((cam.height, cam.width), dtype=torch.int32,
+                               device=dev)
+            feats = orb_mod.extract_orb(g, mask, cfg.orb,
+                                        height=cam.height, width=cam.width)
+        frame = build_frame(feats, d, cam, ts, device=dev)
+        slam.track_frame(frame, ts)
+        masks.append(mask.cpu().numpy())
+        ts_out.append(ts)
+        sync()
+        frame_s.append(_time.perf_counter() - _t0)
+    slam.shutdown()
+    ts_arr, est = slam.trajectory()
+    info = {"masks": masks, "n_keyframes": len(slam.map.keyframes),
+            "n_culled": sum(k.culled for k in slam.map.keyframes),
+            "n_points": int(slam.map.valid.sum()),
+            "n_obs_pairs": len(slam.map._obs_pid),
+            "frame_s": np.array(frame_s),
+            "n_lost": sum(r.lost for r in slam.records),
+            "kf_traj": slam.keyframe_trajectory(),
+            "loops_closed": (slam.relocalizer.loops_closed
+                             if slam.relocalizer else 0),
+            "loops_rejected": (slam.relocalizer.loops_rejected
+                               if slam.relocalizer else 0)}
+    return ts_arr, est, info
+
+
 def ate_rmse(frames: List[tuple], ts_est: np.ndarray, est_twc: np.ndarray
              ) -> float:
     from sindslam_tpu_torch.evaluation import evaluate_ate
@@ -125,3 +218,48 @@ def mask_iou(frames: List[tuple], masks: List[np.ndarray],
         union = (gt | pred).sum()
         ious.append(inter / max(union, 1))
     return float(np.mean(ious)) if ious else float("nan")
+
+
+def _kf_ate(frames: List[tuple], kf_traj) -> float:
+    from sindslam_tpu_torch.evaluation import evaluate_ate
+
+    kf_ts, kf_twc = kf_traj
+    gt_ts = np.array([f[4] for f in frames])
+    gt_xyz = np.stack([f[3][:3, 3] for f in frames])
+    est_xyz = np.stack([p[:3, 3] for p in kf_twc])
+    return float(evaluate_ate(gt_ts, gt_xyz, kf_ts, est_xyz).rmse)
+
+
+def accuracy_pair(name: str, n_frames: int = 10, scale: float = 1.0,
+                  seed: int = 0, n_features: int = 1000,
+                  with_gt_mask: bool = False, device=None) -> Dict[str, float]:
+    """Masked vs unmasked ATE on one named benchmark sequence."""
+    from sindslam_tpu_torch.datasets.synthetic import make_benchmark_sequence
+
+    frames, _scene = make_benchmark_sequence(name, n_frames=n_frames,
+                                             seed=seed, scale=scale)
+    cfg = scaled_system_config(scale, n_features=n_features)
+    ts_m, est_m, info_m = run_sequence_slam(frames, cfg, use_dyna=True,
+                                            device=device)
+    ts_u, est_u, info_u = run_sequence_slam(frames, cfg, use_dyna=False,
+                                            device=device)
+    out = {
+        "sequence": name,
+        "ate_masked_m": ate_rmse(frames, ts_m, est_m),
+        "ate_unmasked_m": ate_rmse(frames, ts_u, est_u),
+        "rpe_masked_m": rpe_rmse(frames, ts_m, est_m),
+        "mask_iou": mask_iou(frames, info_m["masks"]),
+        "n_keyframes": info_m["n_keyframes"],
+        # beyond the reference's keys: the unmasked run's keyframes, both
+        # runs' map points and lost frames
+        "n_keyframes_unmasked": info_u["n_keyframes"],
+        "n_points_masked": info_m["n_points"],
+        "n_points_unmasked": info_u["n_points"],
+        "n_lost_masked": info_m["n_lost"],
+        "n_lost_unmasked": info_u["n_lost"],
+    }
+    if with_gt_mask:
+        ts_g, est_g, _ = run_sequence_slam(frames, cfg, use_dyna=False,
+                                           use_gt_mask=True, device=device)
+        out["ate_gt_mask_m"] = ate_rmse(frames, ts_g, est_g)
+    return out

@@ -13,14 +13,103 @@ K2-K4 and the fused BRIEF exact: K2 at budgets under, at and between
 multiples of its sweeps per launch and where the budget binds, K3 on one
 level and on an atlas of levels in one launch. Tracking on the card is held
 against tracking on the CPU by the check ``chip_smoke.py`` runs: equal match
-indices, inlier sets and packed words, poses within 1e-4.
+indices, inlier sets and packed words, poses within 1e-4; local and global
+bundle adjustment on the card against the CPU by ``chip_smoke.py``'s BA
+check: equal inlier sets, poses within 1e-4, ``mean_chi2`` within 1e-3
+relative, every point within 1e-3 m plus the CPU's own float32 distance from
+a float64 run (the window problem's 36 m mono point sits 1 cm from it on
+either device, and the card's atomic sums move it by 0.4-1.4 mm from run to
+run), observed points within 1e-4 m on average.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from sindslam_tpu_torch.config import CameraConfig
+from sindslam_tpu_torch.geometry import se3 as t_se3
 from sindslam_tpu_torch.ops import cuda_kernels as ck
+
+_CAM = CameraConfig()
+
+
+def _exp(xi: np.ndarray) -> np.ndarray:
+    return t_se3.se3_exp(torch.from_numpy(xi.astype(np.float32))[None])[0].numpy()
+
+
+def _log_err(A: np.ndarray, B: np.ndarray) -> float:
+    """|log(A inv(B))|: the pose difference (translation and rotation)."""
+    d = torch.from_numpy((A @ np.linalg.inv(B)).astype(np.float32))[None]
+    return float(np.linalg.norm(t_se3.se3_log(d)[0].numpy()))
+
+
+def make_problem(rng, n_kf=5, n_pts=200, obs_noise=0.3, pose_noise=0.02,
+                 point_noise=0.05, pad_pts=256, pad_obs=2048, n_fixed=1,
+                 far_point=False, outlier_frac=0.0):
+    """A numpy BAProblem (a dict) in the layout of ``tests/test_ba.py``:
+    poses along x, points in front, stereo observations with noise; the
+    first ``n_fixed`` poses exact and fixed. Optionally a 35 m low-parallax
+    point observed mono by every keyframe and a fraction of grossly
+    corrupted observations. Returns (problem, gt_poses, gt_pts, bad obs)."""
+    gt_poses = np.stack([np.eye(4) for _ in range(n_kf)])
+    for k in range(n_kf):
+        gt_poses[k][:3, 3] = [-0.1 * k, 0.01 * k, 0.0]
+    gt_pts = rng.uniform([-2.5, -2, 2.5], [2.5, 2, 7.0], (n_pts, 3))
+    rows = []
+    for k in range(n_kf):
+        R, t = gt_poses[k][:3, :3], gt_poses[k][:3, 3]
+        pc = gt_pts @ R.T + t
+        u = _CAM.fx * pc[:, 0] / pc[:, 2] + _CAM.cx
+        v = _CAM.fy * pc[:, 1] / pc[:, 2] + _CAM.cy
+        ur = u - _CAM.bf / pc[:, 2]
+        ok = (u > 10) & (u < 630) & (v > 10) & (v < 470)
+        for p in np.where(ok)[0]:
+            rows.append((k, p, u[p] + rng.normal(0, obs_noise),
+                         v[p] + rng.normal(0, obs_noise),
+                         ur[p] + rng.normal(0, obs_noise), p % 3))
+    pts = np.zeros((pad_pts, 3), np.float32)
+    pts[:n_pts] = gt_pts + rng.normal(0, point_noise, gt_pts.shape)
+    if far_point:
+        far = np.array([0.5, -0.3, 35.0])
+        pts[n_pts] = far
+        for k in range(n_kf):
+            pc = far + gt_poses[k][:3, 3]
+            rows.append((k, n_pts,
+                         _CAM.fx * pc[0] / pc[2] + _CAM.cx + rng.normal(0, 2.0),
+                         _CAM.fy * pc[1] / pc[2] + _CAM.cy + rng.normal(0, 2.0),
+                         -1.0, 0))
+    m = len(rows)
+    assert m <= pad_obs
+    arr = np.array(rows)
+    obs_uv = np.zeros((pad_obs, 2), np.float32)
+    obs_uv[:m] = arr[:, 2:4]
+    bad = np.zeros(0, np.int64)
+    if outlier_frac:
+        bad = rng.choice(m, int(m * outlier_frac), replace=False)
+        obs_uv[bad] += rng.uniform(40, 120, (len(bad), 2))
+    poses = gt_poses.copy()
+    for k in range(n_fixed, n_kf):
+        poses[k] = _exp(rng.normal(0, pose_noise, 6)) @ gt_poses[k]
+
+    def pad(a, fill, dtype):
+        out = np.full(pad_obs, fill, dtype)
+        out[:m] = a
+        return out
+
+    problem = dict(
+        poses=poses.astype(np.float32), points=pts,
+        obs_kf=pad(arr[:, 0], 0, np.int32), obs_pt=pad(arr[:, 1], 0, np.int32),
+        obs_uv=obs_uv, obs_ur=pad(arr[:, 4], -1.0, np.float32),
+        obs_level=pad(arr[:, 5], 0, np.int32),
+        obs_valid=pad(np.ones(m, bool), False, bool),
+        fixed_mask=np.arange(n_kf) < n_fixed)
+    return problem, gt_poses, gt_pts, bad
+
+
+# the window problem of tests/test_torch_ba.py: 6 keyframes, noise, 10 %
+# outliers, one fixed pose and one low-parallax far point
+WINDOW = dict(n_kf=6, n_pts=120, pad_pts=160, pad_obs=1024, far_point=True,
+              outlier_frac=0.1)
 
 
 def _level_data(h, w, seed):
@@ -285,3 +374,24 @@ def test_tracking_on_the_card_equals_tracking_on_the_cpu(cuda_device):
                                           cfg.tracking,
                                           cfg.tracking.search_radius_fine)
     assert out["pose_err"] <= chip_smoke.POSE_TOL and out["n_inliers"] >= 30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("joint", [False, True], ids=["local", "joint_global"])
+def test_bundle_adjustment_on_the_card_equals_the_cpu(cuda_device, joint):
+    import os
+    import sys
+    import types
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from sindslam_tpu_torch.config import TrackingConfig
+    from sindslam_tpu_torch.convert import ba_problem_from_numpy
+
+    problem, _gt, _pts, _bad = make_problem(np.random.default_rng(11),
+                                            **WINDOW)
+    tp = ba_problem_from_numpy(types.SimpleNamespace(**problem), cuda_device)
+    out = chip_smoke.ba_cuda_vs_cpu(torch, tp, _CAM,
+                                    TrackingConfig(ba_iterations=10),
+                                    joint=joint)
+    assert out["pose_err"] <= chip_smoke.POSE_TOL and out["n_inliers"] > 500

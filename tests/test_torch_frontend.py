@@ -117,6 +117,7 @@ def _port_sources():
     yield os.path.join(ROOT, "examples", "rgbd_odometry_torch.py")
     yield os.path.join(ROOT, "tools", "torch_probe_sor_inner.py")
     yield os.path.join(ROOT, "tools", "torch_probe_pose_solve.py")
+    yield os.path.join(ROOT, "tools", "torch_probe_ba.py")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -127,7 +128,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "frontend/dyna_detect.py", "datasets/associate.py",
                 "datasets/tum.py", "evaluation/ate.py", "evaluation/rpe.py",
                 "evaluation/trajectory.py", "evaluation/benchmark.py",
-                "utils/profiling.py", "convert.py"):
+                "utils/profiling.py", "convert.py", "slam/ba.py",
+                "slam/gba.py", "slam/triangulation.py", "slam/local_map.py",
+                "slam/bow.py", "slam/pnp.py", "slam/loop_closing.py",
+                "slam/system.py"):
         assert os.path.join("sindslam_tpu_torch", *sub.split("/")) in scanned
     for path in _port_sources():
         with open(path) as f:

@@ -188,7 +188,8 @@ def test_odometry_script_runs_on_the_cpu_and_writes_a_trajectory(tmp_path):
     assert res.n_pairs == 6 and res.rmse < 0.05, str(res)
 
 
-@pytest.mark.parametrize("flag", [("--slam",), ("--map", "map.pcd")])
+@pytest.mark.parametrize("flag", [("--slam", "--map", "map.pcd"),
+                                  ("--map", "map.pcd")])
 def test_odometry_script_refuses_the_modes_not_ported(tmp_path, flag):
     run = _run_script("--synthetic", "--frames", "2", "--device", "cpu", *flag,
                       cwd=tmp_path)
