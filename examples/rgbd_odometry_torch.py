@@ -64,7 +64,7 @@ def main() -> int:
 
     if args.map_out:
         print("--map is not available in the PyTorch port yet: dense mapping "
-              "(mapping/dense.py) is ROADMAP.md Queue 1 item 19. Use "
+              "(mapping/dense.py) is slice 6 in ROADMAP.md Queue 1. Use "
               "examples/rgbd_odometry.py --map for the JAX package.",
               file=sys.stderr)
         return 2

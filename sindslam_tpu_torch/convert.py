@@ -1,5 +1,6 @@
 """Carry the configuration, the recurrent front-end and detector state, a
-frame's features, a bundle-adjustment problem and a BoW vocabulary across
+frame's features, a bundle-adjustment problem, a pose graph and a BoW
+vocabulary across
 from the JAX package. The system has no weights: these are all that crosses,
 and with them a test steps both packages from the same state. The map
 itself crosses as a file: ``SlamSystem.save_map`` writes the same ``.npz``
@@ -20,6 +21,7 @@ from sindslam_tpu_torch.frontend.pipeline import FrontendState
 from sindslam_tpu_torch.slam.ba import BAProblem
 from sindslam_tpu_torch.slam.bow import Vocabulary
 from sindslam_tpu_torch.slam.frame import FrameData
+from sindslam_tpu_torch.slam.pose_graph import PoseGraph
 
 
 def config_from_dict(d: Mapping[str, Any]) -> SystemConfig:
@@ -116,6 +118,16 @@ def ba_problem_from_numpy(p: Any, device=None) -> BAProblem:
         obs_level=t(p.obs_level, torch.int32),
         obs_valid=t(p.obs_valid, torch.bool),
         fixed_mask=t(p.fixed_mask, torch.bool))
+
+
+def pose_graph_from_numpy(g: Any, device=None) -> PoseGraph:
+    """The port's ``PoseGraph`` from a reference ``PoseGraph`` (or any
+    object with its fields) whose arrays were converted to numpy."""
+    t = _to(resolve_device(device))
+    return PoseGraph(
+        poses=t(g.poses, torch.float32), edge_i=t(g.edge_i, torch.int32),
+        edge_j=t(g.edge_j, torch.int32), edge_T=t(g.edge_T, torch.float32),
+        edge_w=t(g.edge_w, torch.float32), fixed=t(g.fixed, torch.bool))
 
 
 def vocabulary_from_numpy(v: Any) -> Vocabulary:

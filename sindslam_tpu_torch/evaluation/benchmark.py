@@ -4,9 +4,9 @@ sequences, PyTorch port of ``sindslam_tpu/evaluation/benchmark.py``.
 The scaled configuration, ATE and RPE of an estimated trajectory against the
 rendered frames' ground truth, the dynamic-mask IoU, and the full-SLAM
 runners ``run_sequence_slam`` and ``accuracy_pair`` on the port's
-``SlamSystem`` (on CUDA unless ``device="cpu"``). The loop-closure pairs
-(``loop_closure_pair``, ``mono_loop_closure_pair``) need loop correction and
-monocular SLAM, which are not ported yet.
+``SlamSystem`` (on CUDA unless ``device="cpu"``), and the RGB-D
+loop-closure pair ``loop_closure_pair``. ``mono_loop_closure_pair`` needs
+monocular SLAM, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -228,6 +228,52 @@ def _kf_ate(frames: List[tuple], kf_traj) -> float:
     gt_xyz = np.stack([f[3][:3, 3] for f in frames])
     est_xyz = np.stack([p[:3, 3] for p in kf_twc])
     return float(evaluate_ate(gt_ts, gt_xyz, kf_ts, est_xyz).rmse)
+
+
+def loop_closure_pair(n_frames: int = 240, scale: float = 0.5,
+                      n_features: int = 800, orbits: float = 1.0,
+                      seed: int = 0, device=None) -> Dict[str, float]:
+    """Loop-closing ON vs OFF ATE on the room-orbit sequence.
+
+    The end-to-end demonstration the reference's LoopClosing thread exists
+    for (``ORB_SLAM2/src/LoopClosing.cc:402-577`` + post-loop GBA,
+    ``Optimizer.cc:781``): a long trajectory that actually revisits its
+    start, where accumulated drift must be detected via BoW and squeezed out
+    through the essential graph + joint GBA. Mask-free (static scene): this
+    exercises the SLAM core, not DynaDetect.
+    """
+    from sindslam_tpu_torch.datasets.synthetic import make_orbit_sequence
+
+    frames, _scene = make_orbit_sequence(n_frames=n_frames, scale=scale,
+                                         orbits=orbits, seed=seed)
+    cfg = scaled_system_config(scale, n_features=n_features)
+    ts_on, est_on, info_on = run_sequence_slam(frames, cfg, use_dyna=False,
+                                               loop_closing=True, device=device)
+    ts_off, est_off, info_off = run_sequence_slam(frames, cfg, use_dyna=False,
+                                                  loop_closing=False,
+                                                  device=device)
+    fs = info_on["frame_s"]
+    return {
+        "ate_loop_on_m": ate_rmse(frames, ts_on, est_on),
+        "ate_loop_off_m": ate_rmse(frames, ts_off, est_off),
+        # keyframe-trajectory ATE: the loop correction acts on KEYFRAMES
+        # (pose graph + GBA); the full-trajectory replay dilutes it with
+        # inter-keyframe tracking noise, so the keyframe metric is the
+        # direct readout of the correction (ref SaveKeyFrameTrajectoryTUM)
+        "kf_ate_loop_on_m": _kf_ate(frames, info_on["kf_traj"]),
+        "kf_ate_loop_off_m": _kf_ate(frames, info_off["kf_traj"]),
+        "loops_closed": info_on["loops_closed"],
+        "loops_rejected": info_on["loops_rejected"],
+        "n_keyframes": info_on["n_keyframes"],
+        "n_keyframes_off": info_off["n_keyframes"],
+        # long-run scaling telemetry: median per-frame host time early vs
+        # late in the sequence, live observation-pair count
+        "frame_ms_median_early": float(np.median(fs[5:45]) * 1000),
+        "frame_ms_median_late": float(np.median(fs[-40:]) * 1000),
+        "n_culled": info_on["n_culled"],
+        "n_obs_pairs": info_on["n_obs_pairs"],
+        "n_points": info_on["n_points"],
+    }
 
 
 def accuracy_pair(name: str, n_frames: int = 10, scale: float = 1.0,

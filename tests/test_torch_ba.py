@@ -209,3 +209,75 @@ def test_device_comparison_check_runs_and_catches_a_difference(monkeypatch):
     monkeypatch.setattr(t_ba, "local_bundle_adjustment", disturbed)
     with pytest.raises(AssertionError, match="local BA:"):
         chip_smoke.ba_cuda_vs_cpu(torch, tp, TCAM, TCFG, devices=("cpu", "cpu"))
+
+
+def test_device_comparison_check_accepts_another_order_of_sums(monkeypatch):
+    """The card sums in another order than the CPU. The same check, with the
+    CPU on both sides and the observations permuted on one of them, passes
+    the joint global BA of the window problem, though a point there moves by
+    two centimetres: the order of float32 sums alone moves the weakly
+    determined points, by a few hundredths of their standard deviation."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    problem, _gt, _pts, _bad = _window_problem()
+    tp = both(problem)[1]
+    real = t_gba.joint_global_ba
+    calls = []
+
+    def permuted(p, cam, cfg, **kw):
+        calls.append(1)
+        if len(calls) > 1:
+            return real(p, cam, cfg, **kw)
+        perm = torch.randperm(p.obs_kf.shape[0],
+                              generator=torch.Generator().manual_seed(11))
+        obs = ("obs_kf", "obs_pt", "obs_uv", "obs_ur", "obs_level", "obs_valid")
+        r = real(p._replace(**{n: getattr(p, n)[perm] for n in obs}), cam, cfg,
+                 **kw)
+        inl = torch.empty_like(r.obs_inlier).index_put_((perm,), r.obs_inlier)
+        return r._replace(obs_inlier=inl)
+
+    monkeypatch.setattr(t_gba, "joint_global_ba", permuted)
+    out = chip_smoke.ba_cuda_vs_cpu(torch, tp, TCAM, TCFG, joint=True,
+                                    devices=("cpu", "cpu"))
+    assert out["point_err"] > 1e-2
+    assert out["sigma_err"] <= chip_smoke.BA_POINT_SIGMA / 2
+    assert out["sigma_mean_err"] <= chip_smoke.BA_POINT_SIGMA_MEAN / 2
+
+
+def test_point_information_counts_standard_deviations():
+    """``chip_smoke.point_information`` of one point seen by one stereo
+    observation at level 0 is ``J^T J`` of its three residual rows, and it is
+    zero when that observation is no inlier."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    p = t_ba.BAProblem(
+        poses=torch.eye(4, dtype=torch.float64)[None],
+        points=torch.tensor([[0.0, 0.0, 2.0]], dtype=torch.float64),
+        obs_kf=torch.zeros(1, dtype=torch.int32),
+        obs_pt=torch.zeros(1, dtype=torch.int32),
+        obs_uv=torch.tensor([[TCAM.cx, TCAM.cy]], dtype=torch.float64),
+        obs_ur=torch.tensor([TCAM.cx - TCAM.bf / 2.0], dtype=torch.float64),
+        obs_level=torch.zeros(1, dtype=torch.int32),
+        obs_valid=torch.ones(1, dtype=torch.bool),
+        fixed_mask=torch.ones(1, dtype=torch.bool))
+    H = chip_smoke.point_information(torch, p, p.poses, p.points,
+                                     torch.ones(1, dtype=torch.bool), TCAM)
+    z = 2.0
+    J = torch.tensor([[TCAM.fx / z, 0.0, 0.0], [0.0, TCAM.fy / z, 0.0],
+                      [TCAM.fx / z, 0.0, TCAM.bf / z ** 2]],
+                     dtype=torch.float64)
+    torch.testing.assert_close(H[0], J.T @ J, rtol=1e-12, atol=0.0)
+    step = torch.tensor([z / TCAM.fx, 0.0, 0.0], dtype=torch.float64)
+    # across the ray one pixel moves u and the virtual right u by one each
+    assert float(step @ H[0] @ step) == pytest.approx(2.0, rel=1e-12)
+    none = chip_smoke.point_information(torch, p, p.poses, p.points,
+                                        torch.zeros(1, dtype=torch.bool), TCAM)
+    assert float(none.abs().max()) == 0.0

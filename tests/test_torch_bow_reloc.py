@@ -8,7 +8,11 @@ Held: vocabulary nodes equal bit for bit, word ids equal, database queries
 equal; PnP poses within 1e-4 and inlier masks equal; relocalization of a
 kidnapped view gives the same candidates and a pose within 1e-3; the
 online-trained vocabulary of ``Relocalizer.add_keyframe`` equal bit for bit.
-Loop correction is not ported: ``_close_with`` raises.
+Loop detection and correction: ``try_close_loop`` on paired maps of 21
+keyframes whose last ones revisit the first closes the same loop at the same
+keyframe in both packages, with JAX's loop draws injected
+(``Relocalizer.loop_draws``); the corrected poses within 1e-4 of JAX's and
+within 1 cm of the truth.
 """
 
 import types
@@ -23,11 +27,13 @@ import jax.numpy as jnp
 from sindslam_tpu.config import SystemConfig
 from sindslam_tpu.slam import bow as j_bow
 from sindslam_tpu.slam import frame as j_frame
+from sindslam_tpu.slam import local_map as j_lm
 from sindslam_tpu.slam import loop_closing as j_lc
 from sindslam_tpu.slam import pnp as j_pnp
 from sindslam_tpu_torch import convert
 from sindslam_tpu_torch.config import SystemConfig as TSystemConfig
 from sindslam_tpu_torch.slam import bow as t_bow
+from sindslam_tpu_torch.slam import local_map as t_lm
 from sindslam_tpu_torch.slam import loop_closing as t_lc
 from sindslam_tpu_torch.slam import pnp as t_pnp
 from test_torch_cuda import _exp, _log_err
@@ -239,11 +245,45 @@ def test_online_vocabulary_training_matches_jax():
     assert tr._corpus_total == jr._corpus_total
 
 
-def test_loop_correction_is_not_ported_and_says_so():
-    jm, tm, _poses, _frames = build_maps(n_kf=3, seed=1)
-    tr = t_lc.Relocalizer(TSystemConfig(), device="cpu")
-    sys_ = types.SimpleNamespace(map=tm, _frame_count=3)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tr._close_with(sys_, tm.keyframes[2], tm.keyframes[0], 25)
-    # detection returns before the correction on maps under min_gap + 2
-    assert tr.try_close_loop(sys_) is False
+def test_try_close_loop_closes_the_same_loop_as_jax():
+    """The corridor revisit of ``revisit_events``: detection needs 17
+    keyframes and a candidate consistent over 3 detections, so keyframes
+    16-18 detect (0 -> 2 consistent hits) and 19 closes, in both packages,
+    against the same candidate; the way back's 6 cm drift is taken out."""
+    from test_torch_loop_closing import (assert_maps_agree, jax_loop_draws,
+                                         port_config, replay_revisit,
+                                         revisit_events)
+
+    events = revisit_events()
+    cfg = SystemConfig()
+    tcfg = port_config(cfg)
+    corpus = np.concatenate([e["frame"].desc for e in events])[::2]
+    vocab = j_bow.train_vocabulary(corpus, k=10, levels=3)
+    jm = j_lm.LocalMap(cfg.camera, cfg.tracking)
+    tm = t_lm.LocalMap(tcfg.camera, tcfg.tracking, device="cpu")
+    jr = j_lc.Relocalizer(cfg, vocab=vocab)
+    tr = t_lc.Relocalizer(tcfg, vocab=convert.vocabulary_from_numpy(vocab),
+                          device="cpu")
+    jr.growth_enabled = tr.growth_enabled = False
+    tr.loop_draws = jax_loop_draws
+    systems = [types.SimpleNamespace(map=m, Tcw=np.eye(4, dtype=np.float32),
+                                     velocity=np.eye(4, dtype=np.float32),
+                                     _frame_count=0) for m in (jm, tm)]
+    verdicts = replay_revisit(events, [(jm, jr, systems[0]),
+                                       (tm, tr, systems[1])])
+    assert [k for k, v in enumerate(verdicts) if v[0]] == \
+        [k for k, v in enumerate(verdicts) if v[1]] == [19]
+    assert tr.loops_closed == jr.loops_closed == 1
+    assert tr.loops_rejected == jr.loops_rejected == 0
+    assert tr._loop_edges == jr._loop_edges and tr._loop_edges[0][1] == 19
+    assert tr._loop_edges[0][0] in (0, 1, 2)
+    assert_maps_agree(jm, tm)
+    np.testing.assert_allclose(systems[1].Tcw, systems[0].Tcw, atol=1e-4)
+    for kf in tm.keyframes[:20]:
+        err = np.linalg.norm(np.linalg.inv(kf.Tcw)[:3, 3]
+                             - np.linalg.inv(events[kf.kf_id]["gt"])[:3, 3])
+        assert err < 0.01, (kf.kf_id, err)
+    # before the correction the way back was 6-7 cm off
+    drifted = np.linalg.norm(np.linalg.inv(events[20]["est"])[:3, 3]
+                             - np.linalg.inv(events[20]["gt"])[:3, 3])
+    assert drifted > 0.05

@@ -15,11 +15,17 @@ level and on an atlas of levels in one launch. Tracking on the card is held
 against tracking on the CPU by the check ``chip_smoke.py`` runs: equal match
 indices, inlier sets and packed words, poses within 1e-4; local and global
 bundle adjustment on the card against the CPU by ``chip_smoke.py``'s BA
-check: equal inlier sets, poses within 1e-4, ``mean_chi2`` within 1e-3
-relative, every point within 1e-3 m plus the CPU's own float32 distance from
-a float64 run (the window problem's 36 m mono point sits 1 cm from it on
-either device, and the card's atomic sums move it by 0.4-1.4 mm from run to
-run), observed points within 1e-4 m on average.
+check: inlier sets equal but for observations at their chi2 threshold,
+poses within 1e-4, the mean chi2 over the shared inliers within 1e-3
+relative, every point within 0.1 of its own standard deviation and the
+observed points within 0.01 on average, each plus the CPU's own distance
+from a float64 run (the window problem's 36 m mono point sits 1 cm from it
+on either device, and the card's atomic sums move it by 0.4-1.4 mm from run
+to run: a small part of its deviation along the ray). The loop solvers on the card
+against the CPU by ``chip_smoke.py``'s loop checks: ``ransac_rigid`` with the
+same draws gives the same inlier mask, it and its IRLS refinement
+transforms within 1e-4 (tangent norm), and ``optimize_pose_graph`` poses
+within 1e-4 plus the CPU's own float32 distance from a float64 solve.
 """
 
 import numpy as np
@@ -29,6 +35,7 @@ import torch
 from sindslam_tpu_torch.config import CameraConfig
 from sindslam_tpu_torch.geometry import se3 as t_se3
 from sindslam_tpu_torch.ops import cuda_kernels as ck
+from sindslam_tpu_torch.slam.pose_graph import PoseGraph
 
 _CAM = CameraConfig()
 
@@ -110,6 +117,50 @@ def make_problem(rng, n_kf=5, n_pts=200, obs_noise=0.3, pose_noise=0.02,
 # outliers, one fixed pose and one low-parallax far point
 WINDOW = dict(n_kf=6, n_pts=120, pad_pts=160, pad_obs=1024, far_point=True,
               outlier_frac=0.1)
+
+
+def seeded_ransac_problem(seed: int = 3, n: int = 120):
+    """A 3D-3D loop problem made with numpy from ``seed``: ``n`` pairs
+    ``pb = T pa`` with 1 cm noise, a third of them moved 0.5-2 m off, the
+    first five invalid, and (256, n) standard Gumbel draws. Returns
+    (pa, pb, valid, gumbel) as CPU tensors."""
+    rng = np.random.default_rng(seed)
+    xi = np.array([0.2, -0.1, 0.3, 0.05, -0.1, 0.08], np.float32)
+    T = _exp(xi)
+    pa = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+    pb = pa @ T[:3, :3].T + T[:3, 3] + rng.normal(0, 0.01, (n, 3))
+    out = rng.choice(n, n // 3, replace=False)
+    pb[out] += rng.uniform(0.5, 2.0, (len(out), 3))
+    valid = np.ones(n, bool)
+    valid[:5] = False
+    gumbel = rng.gumbel(size=(256, n)).astype(np.float32)
+    return (torch.from_numpy(pa), torch.from_numpy(pb.astype(np.float32)),
+            torch.from_numpy(valid), torch.from_numpy(gumbel))
+
+
+def seeded_pose_graph(seed: int = 8, n_kf: int = 30):
+    """An SE(3) pose graph made with numpy from ``seed``: ``n_kf`` poses
+    perturbed from the truth (the first exact and fixed), the sequential
+    chain and 55 random edges (6 of them repeated in the other orientation)
+    measured with noise, weights in [0, 2]. Returns a CPU ``PoseGraph``."""
+    rng = np.random.default_rng(seed)
+    gt = _exp(rng.normal(0, 0.6, (n_kf, 6)))
+    est = _exp(rng.normal(0, 0.05, (n_kf, 6))) @ gt
+    est[0] = gt[0]
+    pairs = [(a, a + 1) for a in range(n_kf - 1)]
+    pairs += [tuple(rng.choice(n_kf, 2, replace=False)) for _ in range(55)]
+    pairs += [(b, a) for a, b in pairs[:6]]
+    noise = _exp(rng.normal(0, 0.01, (len(pairs), 6)))
+    edge_T = np.stack([n @ gt[a] @ np.linalg.inv(gt[b])
+                       for (a, b), n in zip(pairs, noise)])
+    return PoseGraph(
+        poses=torch.from_numpy(est.astype(np.float32)),
+        edge_i=torch.tensor([a for a, _b in pairs], dtype=torch.int32),
+        edge_j=torch.tensor([b for _a, b in pairs], dtype=torch.int32),
+        edge_T=torch.from_numpy(edge_T.astype(np.float32)),
+        edge_w=torch.from_numpy(rng.uniform(0, 2, len(pairs)).astype(
+            np.float32)),
+        fixed=torch.arange(n_kf) == 0)
 
 
 def _level_data(h, w, seed):
@@ -395,3 +446,20 @@ def test_bundle_adjustment_on_the_card_equals_the_cpu(cuda_device, joint):
                                     TrackingConfig(ba_iterations=10),
                                     joint=joint)
     assert out["pose_err"] <= chip_smoke.POSE_TOL and out["n_inliers"] > 500
+
+
+@pytest.mark.cuda
+def test_loop_solvers_on_the_card_equal_the_cpu(cuda_device):
+    """The loop RANSAC on a seeded 3D-3D problem (120 pairs, a third of them
+    outliers, 256 seeded Gumbel draws) and the SE(3) pose graph of 30
+    keyframes and 90 edges on both devices."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    out = chip_smoke.ransac_cuda_vs_cpu(torch, *seeded_ransac_problem())
+    assert out["pose_err"] <= chip_smoke.POSE_TOL and out["n_inliers"] >= 70
+    out = chip_smoke.pose_graph_cuda_vs_cpu(torch, seeded_pose_graph(), 20)
+    assert out["pose_err"] <= chip_smoke.POSE_TOL and out["moved"] > 0.01

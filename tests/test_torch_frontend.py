@@ -118,6 +118,7 @@ def _port_sources():
     yield os.path.join(ROOT, "tools", "torch_probe_sor_inner.py")
     yield os.path.join(ROOT, "tools", "torch_probe_pose_solve.py")
     yield os.path.join(ROOT, "tools", "torch_probe_ba.py")
+    yield os.path.join(ROOT, "tools", "torch_probe_sum_order.py")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -131,7 +132,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "utils/profiling.py", "convert.py", "slam/ba.py",
                 "slam/gba.py", "slam/triangulation.py", "slam/local_map.py",
                 "slam/bow.py", "slam/pnp.py", "slam/loop_closing.py",
-                "slam/system.py"):
+                "slam/system.py", "geometry/sim3.py", "slam/pose_graph.py"):
         assert os.path.join("sindslam_tpu_torch", *sub.split("/")) in scanned
     for path in _port_sources():
         with open(path) as f:
@@ -148,6 +149,30 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 if top in ("jax", "jaxlib", "sindslam_tpu"):
                     bad.append(f"{os.path.relpath(path, ROOT)}:{node.lineno} {n}")
     assert not bad, bad
+
+
+def test_reference_tools_import_jax_only_where_they_run_it():
+    """The tools that print the JAX package's reference figures import JAX
+    and the JAX package inside their functions only: their module scope
+    (argument parsing, ``--help``, ``use_tpu_brief``'s import by the other
+    tool) needs neither."""
+    for name in ("torch_slam_reference.py", "torch_loop_reference.py",
+                 "torch_odometry_reference.py"):
+        path = os.path.join(ROOT, "tools", name)
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        top = []
+        for node in tree.body:
+            if isinstance(node, ast.Import):
+                top += [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                top.append(node.module or "")
+        inner = [n.module or "" if isinstance(n, ast.ImportFrom) else
+                 n.names[0].name for n in ast.walk(tree)
+                 if isinstance(n, (ast.Import, ast.ImportFrom))]
+        assert not [t for t in top if t.split(".")[0] in
+                    ("jax", "sindslam_tpu", "sindslam_tpu_torch")], (name, top)
+        assert any(t.startswith("sindslam_tpu.") for t in inner), name
 
 
 def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch):

@@ -2,7 +2,7 @@
 """Local and global bundle adjustment of the port on the card, against the
 CPU and against a float64 run, on the window problem of the BA tests.
 
-    python3 tools/torch_probe_ba.py
+    python3 tools/torch_probe_ba.py [--repeat N]
 
 The window problem (``tests/test_torch_cuda.py::make_problem`` with
 ``WINDOW``: 6 keyframes, 10 % outliers, one fixed pose, one low-parallax far
@@ -15,11 +15,15 @@ float64 run, and for the points that differ most their observations
 ``torch.profiler``, the host synchronisations and device events of three
 solves and of three readbacks of ``packed``, beside those of three calls
 that do nothing (what the profile's own closing ``synchronize`` adds).
-Needs a CUDA device.
+With ``--repeat N`` each solve runs N times more on the card and every run
+prints its accept flags and its observed points' mean and largest distance
+from the CPU's and the mean from float64's: the card's run-to-run spread. Needs a
+CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import subprocess
 import sys
@@ -94,6 +98,9 @@ def count(torch, fn, n=3):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--repeat", type=int, default=0)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_probe_ba: no CUDA device available", file=sys.stderr)
         return 2
@@ -148,6 +155,24 @@ def main() -> int:
                   f"stereo, z {depth:.2f} m", flush=True)
 
     prob = type(base)(*(t.to("cuda") for t in base))
+    seen = torch.zeros(base.points.shape[0], dtype=torch.bool)
+    seen[obs_pt[base.obs_valid]] = True
+    for joint in (False, True):
+        what = "global BA" if joint else "local BA"
+        r = {k[0]: v for k, v in runs.items() if k[1] == joint}
+        for i in range(args.repeat):
+            res, flags = traced(ba, prob, cam, cfg, joint)
+            pts = res.points.cpu().double()
+            d = torch.linalg.norm(pts - r["cpu"]["points"], dim=-1)[seen]
+            d64 = torch.linalg.norm(pts - r["cpu64"]["points"], dim=-1)[seen]
+            print(f"{what} card run {i + 2}: accept flags {flags}, points "
+                  f"from the CPU's mean {float(d.mean()):.3g} m, max "
+                  f"{float(d.max()):.3g} m; from float64 mean "
+                  f"{float(d64.mean()):.3g} m", flush=True)
+        d64 = torch.linalg.norm(r["cpu"]["points"] - r["cpu64"]["points"],
+                                dim=-1)[seen]
+        print(f"{what} CPU float32 from float64: observed points mean "
+              f"{float(d64.mean()):.3g} m", flush=True)
     noop = count(torch, lambda: None)
     res = ba.local_bundle_adjustment(prob, cam, cfg)
     for what, fn in (("nothing", lambda: None),

@@ -2,7 +2,7 @@
 """The JAX package's full SLAM on the frames ``chip_smoke.py``'s SLAM phase
 runs, on the CPU: the origin of the accuracy bound there.
 
-    JAX_PLATFORMS=cpu python3 tools/torch_slam_reference.py [--frames 12] [--port]
+    JAX_PLATFORMS=cpu python3 tools/torch_slam_reference.py [--frames 12] [--tpu-brief] [--port]
 
 Runs ``sindslam_tpu.evaluation.benchmark.accuracy_pair("dyn_walk",
 n_frames=12)`` as it is written (JAX, CPU backend): the synthetic
@@ -16,8 +16,12 @@ masked RPE and mask IoU, and the keyframes and map points of both runs.
 ``chip_smoke.py`` fails when the port's masked ATE on the card exceeds
 ``max(2 x, x + 2 mm)`` of the masked number printed here.
 
-With ``--port`` the port's ``accuracy_pair`` runs the same on the CPU
-(``device="cpu"``) for comparison. An accuracy, not a time: nothing here is a
+``--tpu-brief`` runs the JAX package with the BRIEF of its TPU path
+(``orb._brief_descriptors_mm``: the angle-binned steering the port follows)
+in place of its CPU path's exact-angle sampling, as
+``tests/test_torch_system_masked.py`` does; ``chip_smoke.py``'s constants
+come from that run. With ``--port`` the port's ``accuracy_pair`` runs the
+same on the CPU (``device="cpu"``) for comparison. An accuracy, not a time: nothing here is a
 device measurement. This tool imports both packages; the port imports
 neither JAX nor ``sindslam_tpu``.
 """
@@ -50,6 +54,8 @@ def report(who: str, bench, frames, cfg, **kw) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=12)
+    ap.add_argument("--tpu-brief", action="store_true",
+                    help="run JAX with the BRIEF of its TPU path")
     ap.add_argument("--port", action="store_true",
                     help="also run the port's accuracy_pair on the CPU")
     args = ap.parse_args()
@@ -59,7 +65,12 @@ def main() -> int:
     from sindslam_tpu.datasets.synthetic import make_benchmark_sequence
     from sindslam_tpu.evaluation import benchmark as j_bench
 
-    print(f"CPU run: jax {jax.__version__} on {jax.default_backend()}")
+    print(f"CPU run: jax {jax.__version__} on {jax.default_backend()}, BRIEF "
+          f"{'TPU path' if args.tpu_brief else 'CPU path'}")
+    if args.tpu_brief:
+        from torch_loop_reference import use_tpu_brief
+
+        use_tpu_brief()
     frames, _scene = make_benchmark_sequence("dyn_walk", n_frames=args.frames,
                                              seed=0)
     t0 = time.perf_counter()
