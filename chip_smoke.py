@@ -74,7 +74,36 @@
    ATE exceeds the bound derived from the JAX package's pair on the same
    frames, when K3 or K4 never launched, or when a pose-graph solve
    synchronises with the host;
-13. prints a ``{"kernels_off_main_path": [...]}`` line for the standalone
+13. runs the flagship drive as a user runs it, in a process of its own:
+   ``examples/rgbd_odometry_torch.py --synthetic --frames 16 --dyna --fused
+   --slam --map <tmp>/map.pcd --eval-ate --timing`` (SLAM with the fused
+   front-end and the dense voxel map); prints its ATE, keyframes, map
+   points, keyframes inserted into the map, occupied voxels after and
+   before the outlier filter, the ``.pcd``'s point count, the host ms of an
+   ``insert_keyframe`` and of the filtered export and its K1-K4 launches
+   (the process's counts from 0); fails on a kernel that did not launch,
+   an empty map, voxel counts outside [0.8, 1.25] x the JAX package's on
+   the same frames, or an ATE above ``max(2 x, x + 2 mm)`` of the JAX
+   package's. Then holds the drive's second inserted keyframe through
+   ``keyframe_to_voxels`` on the card against the CPU, and runs the board
+   scenario of ``tests/test_mapping.py`` through ``DenseMapper`` on the
+   card with that test's limits;
+14. zeroes the launch counters and runs ``MonocularSystem`` over 12 frames
+   (seed 4, amplitude 0.25, 800 features on 4 levels) with
+   ``tests/test_mono.py``'s limits (initialised by frame 6, not lost, more
+   than 100 map points, scale-aligned ATE under 0.12 m); holds the run's
+   first ``initialize_monocular`` input, a seeded ``ransac_sim3`` problem
+   and a seeded Sim(3) pose graph on the card against the CPU;
+15. zeroes the launch counters and runs ``StereoSystem`` over 10 rendered
+   pairs (seed 7) with ``tests/test_stereo.py``'s limits (metric ATE under
+   0.08 m, stereo depth against the render); holds ``stereo_match`` of one
+   pair on the card against the CPU;
+16. runs ``batch_frontend_step`` on 4 pairs of the phase-3 frames and
+   ``batch_temporal_frontend`` on 2 lanes x 4 frames, each with the counters
+   zeroed before and read after, under deterministic sums, and holds each
+   lane equal to the same pair or window run alone on the card; prints ms
+   per pair and per frame;
+17. prints a ``{"kernels_off_main_path": [...]}`` line for the standalone
    patch gather (the main path reaches its loader only through the fused
    BRIEF kernel, so its launch count there is 0), a ``{"kernels": [...]}``
    line for the kernels the main path launches, then as its last line
@@ -149,6 +178,34 @@ JAX_LOOP_KF_ATE_M = (0.275835, 0.306585)    # loop closing on, off
 JAX_LOOP_ATE_M = (0.307798, 0.325767)
 JAX_LOOP_CLOSED = 1
 JAX_LOOP_KEYFRAMES = (29, 30)
+# The JAX package's figures for phases 13-15, JAX on the CPU with the BRIEF
+# of its TPU path, printed by ``tools/torch_modes_reference.py``. Accuracies
+# and counts, not times. Phase 13: the flagship drive (``--synthetic
+# --frames 16 --dyna --fused --slam --map``).
+FLAGSHIP_FRAMES = 16
+JAX_FLAGSHIP_ATE_M = 0.002021
+JAX_FLAGSHIP_KEYFRAMES = 2
+JAX_FLAGSHIP_MAP_POINTS = 1623
+JAX_FLAGSHIP_INSERTED = 4
+JAX_FLAGSHIP_VOXELS = (44056, 53148)   # after, before the outlier filter
+VOXEL_RATIO = (0.8, 1.25)
+# records in another voxel, card against CPU (tests/test_torch_mapping.py)
+VOX_FLIP_FRAC = 0.01
+# Phase 14: MonocularSystem over 12 frames (seed 4, amplitude 0.25), with
+# tests/test_mono.py's limits.
+MONO_FRAMES, MONO_SEED, MONO_AMPLITUDE = 12, 4, 0.25
+MONO_INIT_BY, MONO_MIN_POINTS, MONO_ATE_M = 6, 100, 0.12
+JAX_MONO = dict(init_frame=9, keyframes=3, map_points=158, ate_m=0.012706)
+INIT_TOL = 1e-4
+# Phase 15: StereoSystem over 10 frames (seed 7, amplitude 0.2), with
+# tests/test_stereo.py's limits.
+STEREO_FRAMES, STEREO_SEED, STEREO_AMPLITUDE = 10, 7, 0.2
+STEREO_ATE_M, STEREO_MEDIAN_REL, STEREO_WITHIN_15 = 0.08, 0.05, 0.8
+JAX_STEREO = dict(keyframes=4, map_points=442, ate_m=0.041633)
+STEREO_DEPTH_RTOL = 1e-5
+# Phase 16: the batched front-end, B pairs and lanes x frames of dyn_walk
+BATCH_PAIRS = ((2, 1), (4, 3), (6, 5), (8, 7))
+TEMPORAL_LANES = ((0, 1, 2, 3), (4, 5, 6, 7))
 
 
 def check(cond: bool, what: str) -> None:
@@ -357,16 +414,18 @@ def tracking_cuda_vs_cpu(torch, prev, cur, cam, cfg, radius,
                 map_inliers=int(g["flags"][1].sum()), n_points=n_pts)
 
 
-def pose_gap(torch, A, B):
+def pose_gap(torch, A, B, sim3: bool = False):
     """Tangent norm of ``A inv(B)`` for poses ``A``, ``B`` (..., 4, 4): how
-    far apart two estimates of one pose are, rotation and translation in one
-    norm. The inverse is the matrix's own, not ``se3_inverse``'s transposed
-    rotation: the keyframe poses of the orbit run drift from orthonormal by
-    up to 3e-3, and the transpose reads that drift as a gap of a millimetre
-    or more between two equal poses."""
+    far apart two estimates of one pose are, rotation and translation (and
+    with ``sim3``, log scale) in one norm. The inverse is the matrix's own,
+    not ``se3_inverse``'s transposed rotation: the keyframe poses of the
+    orbit run drift from orthonormal by up to 3e-3, and the transpose reads
+    that drift as a gap of a millimetre or more between two equal poses."""
     from sindslam_tpu_torch.geometry import se3
+    from sindslam_tpu_torch.geometry.sim3 import sim3_log
 
-    return torch.linalg.norm(se3.se3_log(A @ torch.linalg.inv(B)), dim=-1)
+    log = sim3_log if sim3 else se3.se3_log
+    return torch.linalg.norm(log(A @ torch.linalg.inv(B)), dim=-1)
 
 
 def ba_cuda_vs_cpu(torch, problem, cam, cfg, joint: bool = False,
@@ -496,24 +555,27 @@ def point_information(torch, problem, poses, points, inlier, cam):
 
 
 def ransac_cuda_vs_cpu(torch, pa, pb, valid, gumbel,
-                       devices=("cuda", "cpu")) -> dict:
-    """``ransac_rigid`` and ``refine_rigid_irls`` of one loop problem with the
+                       devices=("cuda", "cpu"), sim3: bool = False) -> dict:
+    """``ransac_rigid`` and ``refine_rigid_irls`` (with ``sim3``,
+    ``ransac_sim3`` and ``refine_sim3_irls``) of one loop problem with the
     same draws on the card and on the CPU (``devices``). Raises unless the
     inlier masks are equal and the transforms agree within ``POSE_TOL``
     (tangent norm); returns what it compared."""
     from sindslam_tpu_torch.slam import loop_closing as lc
 
+    ransac, refine = ((lc.ransac_sim3, lc.refine_sim3_irls) if sim3 else
+                      (lc.ransac_rigid, lc.refine_rigid_irls))
     got = []
     for dev in devices:
         a, b, v, g = (t.to(dev) for t in (pa, pb, valid, gumbel))
-        T, inl = lc.ransac_rigid(a, b, v, g)
-        T_ref = lc.refine_rigid_irls(a, b, inl, T)
+        T, inl = ransac(a, b, v, g)
+        T_ref = refine(a, b, inl, T)
         got.append((T.cpu(), inl.cpu(), T_ref.cpu()))
     (T_g, inl_g, R_g), (T_c, inl_c, R_c) = got
     check(torch.equal(inl_g, inl_c),
           f"loop RANSAC: inlier masks differ between the card and the CPU "
           f"({int((inl_g != inl_c).sum())} pairs)")
-    err = max(float(pose_gap(torch, A.double(), B.double()))
+    err = max(float(pose_gap(torch, A.double(), B.double(), sim3))
               for A, B in ((T_g, T_c), (R_g, R_c)))
     check(err <= POSE_TOL, f"loop RANSAC: transforms differ by {err}")
     n_inl = int(inl_c.sum())
@@ -522,9 +584,11 @@ def ransac_cuda_vs_cpu(torch, pa, pb, valid, gumbel,
 
 
 def pose_graph_cuda_vs_cpu(torch, graph, n_iters: int,
-                           devices=("cuda", "cpu")) -> dict:
-    """``optimize_pose_graph`` of one SE(3) graph in float32 on the card and
-    on the CPU (``devices``), and in float64 on the CPU. Raises unless every
+                           devices=("cuda", "cpu"), sim3: bool = False
+                           ) -> dict:
+    """``optimize_pose_graph`` of one SE(3) graph (with ``sim3``,
+    ``optimize_pose_graph_sim3`` of a Sim(3) graph) in float32 on the card
+    and on the CPU (``devices``), and in float64 on the CPU. Raises unless every
     pose of the card is within ``POSE_TOL`` (tangent norm of ``card_k
     inv(cpu_k)``) of the CPU's plus the CPU's own distance from the float64
     solve: a loop's graph starts with the whole drift in one edge, and
@@ -532,32 +596,224 @@ def pose_graph_cuda_vs_cpu(torch, graph, n_iters: int,
     the errors, the accept flags of all three solves and how far the solve
     moved the poses. The card sums the edge blocks with atomic adds, so the
     order of its sums differs from the CPU's."""
-    from sindslam_tpu_torch.slam.pose_graph import optimize_pose_graph
+    from sindslam_tpu_torch.slam import pose_graph as pgm
 
+    solve = pgm.optimize_pose_graph_sim3 if sim3 else pgm.optimize_pose_graph
     got = []
     for dev, dt in ((devices[0], torch.float32), (devices[1], torch.float32),
                     ("cpu", torch.float64)):
         g = type(graph)(*(t.to(dev, dt) if t.is_floating_point() else t.to(dev)
                           for t in graph))
         acc = []
-        poses = optimize_pose_graph(g, n_iters=n_iters, accepts=acc)
+        poses = solve(g, n_iters=n_iters, accepts=acc)
         got.append((poses.cpu().double(),
                     "".join("+" if a else "." for a in acc)))
     (P_g, acc_g), (P_c, acc_c), (P_64, acc_64) = got
 
-    err, f32 = pose_gap(torch, P_g, P_c), pose_gap(torch, P_c, P_64)
+    err = pose_gap(torch, P_g, P_c, sim3)
+    f32 = pose_gap(torch, P_c, P_64, sim3)
     worst = int(torch.argmax(err - f32))
     check(bool((err <= POSE_TOL + f32).all()),
           f"pose graph: pose {worst} differs by {float(err[worst])} between "
           f"the card and the CPU, the CPU's float32 by {float(f32[worst])} "
           f"from float64; accept flags card {acc_g}, CPU {acc_c}, float64 "
           f"{acc_64}")
-    moved = float(pose_gap(torch, P_c, graph.poses.cpu().double()).max())
+    moved = float(pose_gap(torch, P_c, graph.poses.cpu().double(), sim3).max())
     check("+" in acc_c, "pose graph case is trivial: no step accepted")
     return dict(pose_err=float(err.max()), f32_err=float(f32.max()),
-                card64_err=float(pose_gap(torch, P_g, P_64).max()),
+                card64_err=float(pose_gap(torch, P_g, P_64, sim3).max()),
                 accepts=(acc_g, acc_c, acc_64), moved=moved,
                 shape=(graph.poses.shape[0], graph.edge_i.shape[0]))
+
+
+def seeded_sim3_problem(torch, seed: int = 5, n: int = 120):
+    """A monocular loop problem made with numpy from ``seed``: ``n`` 3-D
+    pairs ``pb = S pa`` under a similarity of scale 1.3, with 1 cm noise, a
+    third of them moved 0.5-2 m off, the first five invalid, and (256, n)
+    standard Gumbel draws. Returns (pa, pb, valid, gumbel) as CPU
+    tensors."""
+    import numpy as np
+
+    from sindslam_tpu_torch.geometry.sim3 import sim3_exp
+
+    rng = np.random.default_rng(seed)
+    S = sim3_exp(torch.tensor([0.2, -0.1, 0.3, 0.05, -0.1, 0.08,
+                               np.log(1.3)], dtype=torch.float64)).numpy()
+    pa = rng.uniform(-2, 2, (n, 3))
+    pb = pa @ S[:3, :3].T + S[:3, 3] + rng.normal(0, 0.01, (n, 3))
+    out = rng.choice(n, n // 3, replace=False)
+    pb[out] += rng.uniform(0.5, 2.0, (len(out), 3))
+    valid = np.ones(n, bool)
+    valid[:5] = False
+    gumbel = rng.gumbel(size=(256, n))
+    return (torch.from_numpy(pa.astype(np.float32)),
+            torch.from_numpy(pb.astype(np.float32)), torch.from_numpy(valid),
+            torch.from_numpy(gumbel.astype(np.float32)))
+
+
+def seeded_sim3_graph(torch, seed: int = 9, n_kf: int = 20):
+    """A Sim(3) essential graph made with numpy from ``seed``: ``n_kf``
+    poses with scales in [0.7, 1.4], perturbed from the truth in rotation,
+    translation and log scale (the first exact and fixed), the sequential
+    chain and 30 random edges measured with noise, weights in [0.5, 2].
+    Returns a CPU ``PoseGraph`` of (4, 4) [[sR, t], [0, 1]] matrices."""
+    import numpy as np
+
+    from sindslam_tpu_torch.geometry.sim3 import sim3_exp
+    from sindslam_tpu_torch.slam.pose_graph import PoseGraph
+
+    rng = np.random.default_rng(seed)
+
+    def exp(xi):
+        return sim3_exp(torch.from_numpy(xi)).numpy()
+
+    xi = rng.normal(0, 0.6, (n_kf, 7))
+    xi[:, 6] = rng.uniform(np.log(0.7), np.log(1.4), n_kf)
+    gt = exp(xi)
+    est = exp(rng.normal(0, 0.04, (n_kf, 7))) @ gt
+    est[0] = gt[0]
+    pairs = [(a, a + 1) for a in range(n_kf - 1)]
+    pairs += [tuple(rng.choice(n_kf, 2, replace=False)) for _ in range(30)]
+    noise = exp(rng.normal(0, 0.005, (len(pairs), 7)))
+    edge_T = np.stack([nz @ gt[a] @ np.linalg.inv(gt[b])
+                       for (a, b), nz in zip(pairs, noise)])
+    return PoseGraph(
+        poses=torch.from_numpy(est.astype(np.float32)),
+        edge_i=torch.tensor([a for a, _b in pairs], dtype=torch.int32),
+        edge_j=torch.tensor([b for _a, b in pairs], dtype=torch.int32),
+        edge_T=torch.from_numpy(edge_T.astype(np.float32)),
+        edge_w=torch.from_numpy(rng.uniform(0.5, 2, len(pairs)).astype(
+            np.float32)),
+        fixed=torch.arange(n_kf) == 0)
+
+
+def init_cuda_vs_cpu(torch, p1, p2, seed: int, cam,
+                     devices=("cuda", "cpu")) -> dict:
+    """``initialize_monocular`` of one matched pair on the card and on the
+    CPU (``devices``) with the same draws (its CPU generator seeded by
+    ``seed``). Raises unless both refuse, or both pick the same model with
+    equal inlier masks and R and t within ``INIT_TOL``."""
+    import numpy as np
+
+    from sindslam_tpu_torch.slam.initializer import initialize_monocular
+
+    g, c = (initialize_monocular(p1, p2, np.ones(len(p1), bool), cam,
+                                 seed=seed, min_inliers=50, device=dev)
+            for dev in devices)
+    check((g is None) == (c is None),
+          f"initializer: the card {'refused' if g is None else 'accepted'}, "
+          f"the CPU {'refused' if c is None else 'accepted'}")
+    if g is None:
+        return dict(model=None, n_pairs=len(p1))
+    check(g.model == c.model, f"initializer: model {g.model} on the card, "
+                              f"{c.model} on the CPU")
+    check(np.array_equal(g.inliers, c.inliers),
+          f"initializer: inlier masks differ in "
+          f"{int((g.inliers != c.inliers).sum())} of {len(p1)} pairs")
+    err = max(float(np.abs(g.R - c.R).max()), float(np.abs(g.t - c.t).max()))
+    check(err <= INIT_TOL, f"initializer: R or t differ by {err}")
+    return dict(model=c.model, n_pairs=len(p1), n_inliers=int(c.inliers.sum()),
+                err=err)
+
+
+def stereo_match_cuda_vs_cpu(torch, feats_l, feats_r, gray_l, gray_r, cam,
+                             devices=("cuda", "cpu")) -> dict:
+    """``stereo_match`` of one pair's features on the card and on the CPU
+    (``devices``). Raises unless the matches are equal and the depths agree
+    within ``STEREO_DEPTH_RTOL`` relative."""
+    from sindslam_tpu_torch.slam.stereo import stereo_match
+
+    got = []
+    for dev in devices:
+        fl, fr = (type(f)(*(t.to(dev) for t in f)) for f in (feats_l, feats_r))
+        d, ur = stereo_match(fl, fr, cam, grayL=gray_l.to(dev),
+                             grayR=gray_r.to(dev))
+        got.append((d.cpu(), ur.cpu()))
+    (d_g, ur_g), (d_c, ur_c) = got
+    check(torch.equal(d_g > 0, d_c > 0),
+          f"stereo_match: {int(((d_g > 0) != (d_c > 0)).sum())} keypoints "
+          f"matched on one device only")
+    rel = float((torch.abs(d_g - d_c) / torch.clamp(d_c, min=1e-9)).max())
+    check(rel <= STEREO_DEPTH_RTOL, f"stereo_match: depth differs by {rel} "
+                                    f"relative")
+    n = int((d_c > 0).sum())
+    check(n >= 200, f"stereo_match case is trivial ({n} matches)")
+    return dict(n_matched=n, depth_rel=rel,
+                ur_err=float(torch.abs(ur_g - ur_c).max()))
+
+
+def voxels_cuda_vs_cpu(torch, args, cam, mcfg, devices=("cuda", "cpu")
+                       ) -> dict:
+    """``keyframe_to_voxels`` of one keyframe's inputs (``args``, CPU
+    tensors) on the card and on the CPU (``devices``). Raises unless every
+    field but the voxel coordinates is equal and the coordinates differ by
+    at most 1 on each axis in at most ``VOX_FLIP_FRAC`` of the valid
+    records (the tolerance ``tests/test_torch_mapping.py`` states)."""
+    from sindslam_tpu_torch.mapping.dense import keyframe_to_voxels
+
+    g, c = (keyframe_to_voxels(*(a.to(dev) for a in args), cam, mcfg)
+            for dev in devices)
+    for name in ("rgb", "hit", "valid", "updated_mask", "cluster_occluded"):
+        a, b = getattr(g, name).cpu(), getattr(c, name)
+        check(torch.equal(a, b), f"keyframe_to_voxels: {name} differs in "
+                                 f"{int((a != b).sum())} entries")
+    d = torch.abs(g.vox.cpu().long() - c.vox.long())
+    check(int(d.max()) <= 1, f"keyframe_to_voxels: a voxel moved by "
+                             f"{int(d.max())} on an axis")
+    valid = c.valid
+    flips = int((d.amax(1) > 0)[valid].sum())
+    n_valid = int(valid.sum())
+    check(flips <= VOX_FLIP_FRAC * n_valid,
+          f"keyframe_to_voxels: {flips} of {n_valid} valid records in "
+          f"another voxel")
+    return dict(n_valid=n_valid, flips=flips,
+                n_vetoed=int(c.cluster_occluded.sum()))
+
+
+def board_map(torch, device) -> dict:
+    """``tests/test_mapping.py``'s board scenario (scene seed 0 with the
+    dynamic board, the first two of 3 poses at amplitude 0.05, the board
+    moved 0.3 m between them and masked, cluster labels by depth band with
+    the board its own) through ``DenseMapper`` on ``device``. Raises unless
+    the map holds its limits: more than 5,000 centres, more than 500 within
+    0.5 m of the wall at 5.5 m, and the board (z within 0.1 m of 1.7 m)
+    under 2 % of the centres."""
+    import numpy as np
+
+    from sindslam_tpu_torch.config import CameraConfig, MappingConfig
+    from sindslam_tpu_torch.datasets.synthetic import (make_default_scene,
+                                                       make_trajectory)
+    from sindslam_tpu_torch.mapping.dense import DenseMapper
+
+    scene = make_default_scene(0, with_dynamic=True)
+    poses = make_trajectory(3, 0.05)
+    mapper = DenseMapper(CameraConfig(cx=319.5, cy=239.5), MappingConfig(),
+                         device=device)
+    for i in range(2):
+        rgb, depth, dyn = scene.render(poses[i], np.array([0.3 * i, 0, 0]))
+        mask = np.where(dyn, 255, np.where(depth > 0, 125, 0)).astype(np.int32)
+        label = np.where(depth > 0, 1 + (depth > 3.0).astype(np.int32), 0)
+        label[dyn] = 3
+        mapper.insert_keyframe(rgb, depth, mask, label, np.linalg.inv(poses[i]))
+    centers, _rgb = mapper.export_cloud()
+    mapper.close()
+    n = len(centers)
+    wall = int((np.abs(centers[:, 2] - 5.5) < 0.5).sum())
+    board = int((np.abs(centers[:, 2] - 1.7) < 0.1).sum())
+    check(n > 5000, f"board map: {n} centres")
+    check(wall > 500, f"board map: {wall} centres at the wall")
+    check(board < 0.02 * n, f"board map: {board} of {n} centres on the board")
+    return dict(n=n, wall=wall, board=board)
+
+
+def example_config(cfg_mod):
+    """The 640x480 config of ``examples/{mono,stereo}_odometry_torch.py``:
+    800 features over 4 levels."""
+    return cfg_mod.SystemConfig(
+        camera=cfg_mod.CameraConfig(cx=319.5, cy=239.5),
+        orb=cfg_mod.ORBConfig(n_features=800, n_levels=4),
+        tracking=cfg_mod.TrackingConfig(ba_max_keyframes=8, ba_max_points=2048,
+                                        max_frames_between_kf=3))
 
 
 def fused_odometry(torch, cfg, frames, device, timed=False) -> dict:
@@ -865,6 +1121,386 @@ def profile_call(torch, fn, n: int = 3) -> dict:
     return dict(wall_ms=wall_us / 1e3 / n, events=len(events) / n,
                 busy_ms=busy_us(events) / 1e3 / n, copies=copies / n,
                 syncs=counts["syncs"] - base["syncs"])
+
+
+def phase_flagship(torch, dev, cfg) -> None:
+    """Phase 13: ``examples/rgbd_odometry_torch.py --synthetic --frames 16
+    --dyna --fused --slam --map`` as a user runs it (a process of its own,
+    on ``dev``), its figures against the JAX package's; one of its inserted
+    keyframes through ``keyframe_to_voxels`` on the card against the CPU;
+    the board scenario of ``tests/test_mapping.py`` through ``DenseMapper``
+    on the card."""
+    import re
+    import tempfile
+
+    import numpy as np
+
+    from sindslam_tpu_torch.config import MappingConfig
+    from sindslam_tpu_torch.datasets.synthetic import generate_sequence
+    from sindslam_tpu_torch.frontend import pipeline as fp
+    from sindslam_tpu_torch.mapping.dense import keyframe_to_voxels
+    from sindslam_tpu_torch.ops import image as im
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pcd = os.path.join(tmp, "map.pcd")
+        cmd = [sys.executable,
+               os.path.join(ROOT, "examples", "rgbd_odometry_torch.py"),
+               "--synthetic", "--frames", str(FLAGSHIP_FRAMES), "--dyna",
+               "--fused", "--slam", "--map", pcd, "--eval-ate", "--timing",
+               "--device", dev.type, "--out", os.path.join(tmp, "traj.txt")]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        check(run.returncode == 0, f"flagship drive exited {run.returncode}:"
+                                   f"\n{run.stderr[-3000:]}")
+        with open(pcd, "rb") as f:
+            head = f.read(400).decode(errors="replace")
+
+    def grab(pattern, text=run.stdout):
+        m = re.search(pattern, text)
+        check(m is not None, f"flagship drive printed no {pattern!r}:\n"
+                             f"{run.stdout[-3000:]}")
+        return m.groups()
+
+    ate = float(grab(r"ATE rmse=([0-9.]+)")[0])
+    n_kf, n_pts, n_lost = map(int, grab(
+        r"keyframes: (\d+), map points: (\d+), frames lost: (\d+)"))
+    vox_f, vox_u, n_ins, ins_ms, exp_ms = grab(
+        r"dense map: (\d+) occupied voxels \((\d+) before the outlier "
+        r"filter\), (\d+) keyframes inserted, insert_keyframe ([0-9.]+) ms "
+        r"each, filtered export ([0-9.]+) ms")
+    vox_f, vox_u, n_ins = int(vox_f), int(vox_u), int(n_ins)
+    save_ms = float(grab(r"map save_pcd \(filtered\)\s+([0-9.]+) ms")[0])
+    frame_ms = float(grab(r"frontend\+track \(track_fused\)\s+([0-9.]+) ms")[0])
+    counts = json.loads(grab(r"kernel launches: (\{.*\})")[0])
+    pcd_points = int(grab(r"POINTS (\d+)", head)[0])
+    print(f"flagship drive ({' '.join(cmd[2:])}): ATE {ate:.6f} m, keyframes "
+          f"{n_kf}, map points {n_pts}, frames lost {n_lost}, keyframes "
+          f"inserted into the map {n_ins}, occupied voxels {vox_f} after the "
+          f"outlier filter and {vox_u} before, .pcd points {pcd_points}; host "
+          f"ms (synchronize to synchronize): insert_keyframe "
+          f"{float(ins_ms):.2f} each, filtered export (the SOR filter) "
+          f"{float(exp_ms):.2f}, save_pcd {save_ms:.2f}, track_fused "
+          f"{frame_ms:.2f} a frame; {wall:.1f} s for the process; the JAX "
+          f"package on the same frames (CPU): ATE {JAX_FLAGSHIP_ATE_M:.6f} m, "
+          f"keyframes {JAX_FLAGSHIP_KEYFRAMES}, map points "
+          f"{JAX_FLAGSHIP_MAP_POINTS}, keyframes inserted "
+          f"{JAX_FLAGSHIP_INSERTED}, voxels {JAX_FLAGSHIP_VOXELS[0]} / "
+          f"{JAX_FLAGSHIP_VOXELS[1]}", flush=True)
+    print(f"flagship drive: K1-K4 launches in the run (the process's counts, "
+          f"from 0 at its start) {counts}", flush=True)
+    for name in MAIN_PATH:
+        check(counts[name] > 0,
+              f"kernel {name} never launched in the flagship drive")
+    check(vox_f > 0 and pcd_points == vox_f,
+          f"flagship drive: map of {vox_f} voxels, .pcd of {pcd_points}")
+    check(n_lost == 0, f"flagship drive: {n_lost} frames lost")
+    for got, ref, what in ((vox_f, JAX_FLAGSHIP_VOXELS[0], "after"),
+                           (vox_u, JAX_FLAGSHIP_VOXELS[1], "before")):
+        check(VOXEL_RATIO[0] * ref <= got <= VOXEL_RATIO[1] * ref,
+              f"flagship drive: {got} voxels {what} the outlier filter, "
+              f"outside {VOXEL_RATIO} x the JAX package's {ref}")
+    check(ate <= ate_bound(JAX_FLAGSHIP_ATE_M),
+          f"flagship drive: ATE {ate:.6f} m above the bound "
+          f"{ate_bound(JAX_FLAGSHIP_ATE_M):.6f} m = max(2 x, x + 2 mm) of the "
+          f"JAX package's {JAX_FLAGSHIP_ATE_M:.6f} m")
+
+    # the drive's second inserted keyframe (frame 5; the older keyframe is
+    # frame 0 with its own vetoed mask, as DenseMapper keeps it), masks and
+    # labels from the front-end on dev, card against CPU
+    mcfg = MappingConfig()
+    seq = list(generate_sequence(n_frames=6, seed=0, amplitude=0.06))
+    st = fp.init_state(cfg, im.rgb_to_gray(torch.from_numpy(seq[0][0])),
+                       device=dev)
+    kf = {}
+    for i, (rgb, depth, _dyn, pose, _ts) in enumerate(seq):
+        out, st = fp.frontend_step(rgb, depth, st, cfg)
+        if i in (0, 5):
+            kf[i] = (torch.from_numpy(rgb), torch.from_numpy(depth),
+                     out.dyna_mask.cpu(), out.label_img.cpu(),
+                     torch.from_numpy(pose.astype(np.float32)))
+    (r0, d0, m0, l0, P0), (r5, d5, m5, l5, P5) = kf[0], kf[5]
+    T0 = torch.linalg.inv(P0)
+    first = keyframe_to_voxels(r0, d0, m0, l0, P0, d0, m0, T0, cfg.camera,
+                               mcfg)
+    vx = voxels_cuda_vs_cpu(torch, (r5, d5, m5, l5, P5, d0,
+                                    first.updated_mask, T0), cfg.camera, mcfg,
+                            devices=(dev, "cpu"))
+    print(f"keyframe_to_voxels of the drive's frame 5 (against frame 0), "
+          f"card against CPU: {vx['n_valid']} valid records, {vx['flips']} in "
+          f"another voxel (tol {VOX_FLIP_FRAC} of them, each by at most 1 on "
+          f"an axis), every other field equal, {vx['n_vetoed']} clusters "
+          f"vetoed", flush=True)
+    t0 = time.perf_counter()
+    board = board_map(torch, dev)
+    print(f"board scenario of tests/test_mapping.py through DenseMapper on "
+          f"{dev}: {board['n']} centres (> 5000), {board['wall']} at the wall "
+          f"at 5.5 m (> 500), {board['board']} on the board (< 2 %), "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def phase_mono(torch, dev) -> None:
+    """Phase 14: ``MonocularSystem`` over 12 frames on ``dev`` with the
+    counts zeroed before and read after, held to ``tests/test_mono.py``'s
+    limits; the run's first initializer input, a Sim(3) RANSAC problem and
+    a Sim(3) pose graph on the card against the CPU."""
+    import numpy as np
+
+    from sindslam_tpu_torch import config as t_config
+    from sindslam_tpu_torch.datasets.synthetic import generate_sequence
+    from sindslam_tpu_torch.evaluation import evaluate_ate
+    from sindslam_tpu_torch.ops import cuda_kernels as ck
+    from sindslam_tpu_torch.slam import mono as mono_mod
+
+    cfg = example_config(t_config)
+    seq = list(generate_sequence(n_frames=MONO_FRAMES, seed=MONO_SEED,
+                                 with_dynamic=False, amplitude=MONO_AMPLITUDE))
+    inits = []
+    real_init = mono_mod.initialize_monocular
+
+    def init_kept(p1, p2, valid, cam, seed=0, **kw):
+        inits.append((p1, p2, seed))
+        return real_init(p1, p2, valid, cam, seed=seed, **kw)
+
+    mono_mod.initialize_monocular = init_kept
+    try:
+        sync(torch, dev)
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        mono = mono_mod.MonocularSystem(cfg, device=dev)
+        init_frame = None
+        for i, (rgb, _d, _dyn, _pose, ts) in enumerate(seq):
+            mono.track(rgb, ts)
+            if mono.initialized and init_frame is None:
+                init_frame = i
+        mono.shutdown()
+        sync(torch, dev)
+        secs = time.perf_counter() - t0
+        counts = dict(ck.LAUNCHES)
+    finally:
+        mono_mod.initialize_monocular = real_init
+    n_pts = int(mono.slam.map.valid.sum())
+    ts, est = mono.trajectory()
+    gt = {f[4]: f[3] for f in seq}
+    res = evaluate_ate(np.asarray(ts), np.stack([gt[t][:3, 3] for t in ts]),
+                       np.asarray(ts), est[:, :3, 3], with_scale=True)
+    print(f"mono: MonocularSystem over {MONO_FRAMES} frames (seed {MONO_SEED}"
+          f", amplitude {MONO_AMPLITUDE}), 640x480, 800 features on 4 levels, "
+          f"on {dev}: initialised at frame {init_frame} after {len(inits)} "
+          f"attempt(s), lost {mono.lost}, keyframes "
+          f"{len(mono.slam.map.keyframes)}, map points {n_pts}, scale-aligned "
+          f"ATE {res.rmse:.6f} m over {res.n_pairs} poses, {secs:.1f} s; the "
+          f"JAX package on the same frames (CPU): initialised at frame "
+          f"{JAX_MONO['init_frame']}, keyframes {JAX_MONO['keyframes']}, map "
+          f"points {JAX_MONO['map_points']}, ATE {JAX_MONO['ate_m']:.6f} m",
+          flush=True)
+    print(f"mono: K1-K4 launches {counts}", flush=True)
+    check(init_frame is not None and init_frame <= MONO_INIT_BY,
+          f"mono: initialised at frame {init_frame}, not by {MONO_INIT_BY}")
+    check(not mono.lost, "mono: lost")
+    check(n_pts > MONO_MIN_POINTS, f"mono: {n_pts} map points")
+    check(res.rmse < MONO_ATE_M, f"mono: ATE {res.rmse:.6f} m")
+    for name in ("fast_nms", "brief_from_patches"):
+        check(counts[name] > 0, f"kernel {name} never launched in mono")
+    p1, p2, seed = inits[0]
+    ini = init_cuda_vs_cpu(torch, p1, p2, seed, cfg.camera,
+                           devices=(dev, "cpu"))
+    print(f"mono: initialize_monocular of the run's first matched pair "
+          f"({ini['n_pairs']} matches, seed {seed}), card against CPU with "
+          f"the same draws: " + (f"model {ini['model']}, {ini['n_inliers']} "
+                                 f"inliers, masks equal, R and t within "
+                                 f"{ini['err']:.3g} (tol {INIT_TOL})"
+                                 if ini["model"] else "refused on both"),
+          flush=True)
+    out = ransac_cuda_vs_cpu(torch, *seeded_sim3_problem(torch),
+                             devices=(dev, "cpu"), sim3=True)
+    print(f"mono: ransac_sim3 and refine_sim3_irls on a seeded problem "
+          f"({out['n_pairs']} valid pairs, scale 1.3), card against CPU: "
+          f"inlier masks equal ({out['n_inliers']} inliers), similarities "
+          f"within {out['pose_err']:.3g} (tol {POSE_TOL})", flush=True)
+    out = pose_graph_cuda_vs_cpu(torch, seeded_sim3_graph(torch), 25,
+                                 devices=(dev, "cpu"), sim3=True)
+    print(f"mono: optimize_pose_graph_sim3 on a seeded graph {out['shape']}, "
+          f"card against CPU: poses within {out['pose_err']:.3g} (tol "
+          f"{POSE_TOL} + the CPU's float32 distance from float64, at most "
+          f"{out['f32_err']:.3g}; the card's {out['card64_err']:.3g}), the "
+          f"solve moved them by up to {out['moved']:.4f}; accept flags card "
+          f"{out['accepts'][0]}, CPU {out['accepts'][1]}, float64 "
+          f"{out['accepts'][2]}", flush=True)
+
+
+def phase_stereo(torch, dev) -> None:
+    """Phase 15: ``StereoSystem`` over 10 rendered pairs on ``dev`` with the
+    counts zeroed before and read after, held to ``tests/test_stereo.py``'s
+    limits; ``stereo_match`` of one pair on the card against the CPU."""
+    import numpy as np
+
+    from sindslam_tpu_torch import config as t_config
+    from sindslam_tpu_torch.datasets.synthetic import (make_default_scene,
+                                                       make_trajectory)
+    from sindslam_tpu_torch.evaluation import evaluate_ate
+    from sindslam_tpu_torch.frontend import orb as orb_mod
+    from sindslam_tpu_torch.ops import cuda_kernels as ck
+    from sindslam_tpu_torch.ops import image as im
+    from sindslam_tpu_torch.slam import stereo as stereo_mod
+
+    cfg = example_config(t_config)
+    cam = cfg.camera
+
+    def stereo_pair(scene, T):
+        T_right = T.copy()
+        T_right[:3, 3] = T[:3, 3] + T[:3, :3] @ np.array([cam.baseline, 0, 0])
+        rgbL, depthL, _ = scene.render(T)
+        rgbR, _dR, _ = scene.render(T_right)
+        return rgbL, rgbR, depthL
+
+    scene = make_default_scene(seed=STEREO_SEED, with_dynamic=False)
+    poses = make_trajectory(STEREO_FRAMES, amplitude=STEREO_AMPLITUDE,
+                            seed=STEREO_SEED)
+    pairs = [stereo_pair(scene, T) for T in poses]
+    sync(torch, dev)
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    stereo = stereo_mod.StereoSystem(cfg, device=dev)
+    lost = []
+    for i, (rgbL, rgbR, _d) in enumerate(pairs):
+        stereo.track(rgbL, rgbR, timestamp=i / 30.0)
+        lost.append(stereo.lost)
+    stereo.shutdown()
+    sync(torch, dev)
+    secs = time.perf_counter() - t0
+    counts = dict(ck.LAUNCHES)
+    ts, est = stereo.trajectory()
+    res = evaluate_ate(np.arange(STEREO_FRAMES) / 30.0, poses[:, :3, 3],
+                       np.asarray(ts), est[:, :3, 3])
+    print(f"stereo: StereoSystem over {STEREO_FRAMES} rendered pairs (seed "
+          f"{STEREO_SEED}, amplitude {STEREO_AMPLITUDE}), 640x480, 800 "
+          f"features on 4 levels, on {dev}: frames lost {sum(lost)}, "
+          f"keyframes {len(stereo.slam.map.keyframes)}, map points "
+          f"{int(stereo.slam.map.valid.sum())}, metric ATE {res.rmse:.6f} m "
+          f"(no scale alignment), {secs:.1f} s; the JAX package on the same "
+          f"frames (CPU): keyframes {JAX_STEREO['keyframes']}, map points "
+          f"{JAX_STEREO['map_points']}, ATE {JAX_STEREO['ate_m']:.6f} m",
+          flush=True)
+    print(f"stereo: K1-K4 launches {counts}", flush=True)
+    check(not any(lost), f"stereo: lost at frames "
+                         f"{[i for i, x in enumerate(lost) if x]}")
+    check(res.rmse < STEREO_ATE_M, f"stereo: ATE {res.rmse:.6f} m")
+    for name in ("fast_nms", "brief_from_patches"):
+        check(counts[name] >= 2 * STEREO_FRAMES,
+              f"kernel {name} launched {counts[name]} times in stereo")
+
+    rgbL, rgbR, depthL = stereo_pair(make_default_scene(6, False), np.eye(4))
+    gl = im.rgb_to_gray(torch.from_numpy(rgbL).to(dev))
+    gr = im.rgb_to_gray(torch.from_numpy(rgbR).to(dev))
+    frame = stereo_mod.build_frame_stereo(gl, gr, cfg)
+    z, xy = frame.depth.cpu().numpy(), frame.xy.cpu().numpy()
+    ok = frame.valid.cpu().numpy() & (z > 0)
+    gtz = depthL[np.clip(xy[ok, 1].round().astype(int), 0, 479),
+                 np.clip(xy[ok, 0].round().astype(int), 0, 639)]
+    good = gtz > 0.1
+    rel = np.abs(z[ok][good] - gtz[good]) / gtz[good]
+    print(f"stereo: build_frame_stereo of tests/test_stereo.py's pair on "
+          f"{dev}: {int(ok.sum())} stereo depths, median relative error "
+          f"{np.median(rel):.4f} (< {STEREO_MEDIAN_REL}), "
+          f"{(rel < 0.15).mean():.3f} within 15 % (> {STEREO_WITHIN_15})",
+          flush=True)
+    check(np.median(rel) < STEREO_MEDIAN_REL
+          and (rel < 0.15).mean() > STEREO_WITHIN_15,
+          "stereo: depth against the render outside tests/test_stereo.py's "
+          "limits")
+    zero = torch.zeros((cam.height, cam.width), dtype=torch.int32, device=dev)
+    fl, fr = (orb_mod.extract_orb(g, zero, cfg.orb, height=cam.height,
+                                  width=cam.width) for g in (gl, gr))
+    out = stereo_match_cuda_vs_cpu(torch, fl, fr, gl, gr, cam,
+                                   devices=(dev, "cpu"))
+    print(f"stereo: stereo_match of that pair's features, card against CPU: "
+          f"{out['n_matched']} matches, equal, depth within "
+          f"{out['depth_rel']:.3g} relative (tol {STEREO_DEPTH_RTOL}), ur "
+          f"within {out['ur_err']:.3g} px", flush=True)
+
+
+def phase_batch(torch, dev, cfg, rgbs, depths) -> None:
+    """Phase 16: ``batch_frontend_step`` on pairs of the phase-3 frames
+    (``rgbs``, ``depths`` on ``dev``) and ``batch_temporal_frontend`` on
+    lanes of them, the counts zeroed before each and read after; each lane
+    against the same pair or window run alone. Deterministic sums, so that
+    a lane and its single run can be equal."""
+    from sindslam_tpu_torch.frontend import pipeline as fp
+    from sindslam_tpu_torch.frontend.flow_mask import n_grid_samples
+    from sindslam_tpu_torch.ops import cuda_kernels as ck
+    from sindslam_tpu_torch.ops import image as im
+    from sindslam_tpu_torch.ops.homography import gumbel_draws
+    from sindslam_tpu_torch.parallel import batch_frontend as bf
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        n_s = n_grid_samples(cfg.camera.height, cfg.camera.width, cfg.dyna)
+        gen = torch.Generator(device="cpu")
+        rgb_b = torch.stack([rgbs[a] for a, _b in BATCH_PAIRS])
+        prev_b = torch.stack([rgbs[b] for _a, b in BATCH_PAIRS])
+        depth_b = torch.stack([depths[a] for a, _b in BATCH_PAIRS])
+        step = bf.batch_frontend_step(cfg, device=dev)
+        sync(torch, dev)
+        ck.reset_launch_counts()
+        gen.manual_seed(0)
+        t0 = time.perf_counter()
+        masks, labels, feats = step(rgb_b, prev_b, depth_b, generator=gen)
+        sync(torch, dev)
+        batch_ms = 1e3 * (time.perf_counter() - t0) / len(BATCH_PAIRS)
+        batch_counts = dict(ck.LAUNCHES)
+        gen.manual_seed(0)
+        for b in range(len(BATCH_PAIRS)):
+            g = gumbel_draws(cfg.dyna.ransac_iters, n_s, gen, dev)
+            m, lab, f = bf.single_pair(rgb_b[b], prev_b[b], depth_b[b], g, cfg)
+            check(torch.equal(masks[b], m) and torch.equal(labels[b], lab)
+                  and all(torch.equal(x[b], y) for x, y in zip(feats, f)),
+                  f"batch_frontend_step: lane {b} differs from its pair run "
+                  f"alone")
+        dyn = [int((m == cfg.dyna.mask_dynamic).sum()) for m in masks]
+
+        run = bf.batch_temporal_frontend(cfg, device=dev)
+        rgb_t = torch.stack([torch.stack([rgbs[i] for i in lane])
+                             for lane in TEMPORAL_LANES])
+        depth_t = torch.stack([torch.stack([depths[i] for i in lane])
+                               for lane in TEMPORAL_LANES])
+        sync(torch, dev)
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        masks_t, large_t, nf_t = run(rgb_t, depth_t)
+        sync(torch, dev)
+        n_t = sum(len(lane) for lane in TEMPORAL_LANES)
+        temporal_ms = 1e3 * (time.perf_counter() - t0) / n_t
+        temporal_counts = dict(ck.LAUNCHES)
+        for b, lane in enumerate(TEMPORAL_LANES):
+            st = fp.init_state(cfg, im.rgb_to_gray(rgbs[lane[0]]), device=dev)
+            for t, i in enumerate(lane):
+                out, st = fp.frontend_step(rgbs[i], depths[i], st, cfg)
+                check(torch.equal(masks_t[b, t], out.dyna_mask)
+                      and int(nf_t[b, t]) == int(out.features.valid.sum())
+                      and bool(large_t[b, t]) == out.large_motion,
+                      f"batch_temporal_frontend: lane {b} frame {t} differs "
+                      f"from frontend_step run alone")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"batched front-end (deterministic sums): batch_frontend_step on "
+          f"B = {len(BATCH_PAIRS)} pairs {list(BATCH_PAIRS)} of dyn_walk at "
+          f"640x480, each lane equal to its pair run alone, dynamic pixels "
+          f"per lane {dyn}, {batch_ms:.1f} ms a pair (host clock, synchronize "
+          f"to synchronize, the first call), K1-K4 launches {batch_counts}; "
+          f"batch_temporal_frontend on {len(TEMPORAL_LANES)} lanes x "
+          f"{len(TEMPORAL_LANES[0])} frames, each lane equal to frontend_step "
+          f"run alone, {temporal_ms:.1f} ms a frame, K1-K4 launches "
+          f"{temporal_counts}", flush=True)
+    for name in MAIN_PATH:
+        check(batch_counts[name] > 0 and temporal_counts[name] > 0,
+              f"kernel {name} never launched in the batched front-end")
+    check(max(dyn) > 0, "batched front-end: no dynamic pixel in any lane")
+
+
+def sync(torch, dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
 
 
 def main() -> int:
@@ -1776,6 +2412,14 @@ def main() -> int:
           flush=True)
 
     lap("phase 12, the loop-closure pair")
+    phase_flagship(torch, dev, cfg)
+    lap("phase 13, the flagship drive")
+    phase_mono(torch, dev)
+    lap("phase 14, monocular SLAM")
+    phase_stereo(torch, dev)
+    lap("phase 15, stereo SLAM")
+    phase_batch(torch, dev, cfg, rgbs, depths)
+    lap("phase 16, the batched front-end")
 
     def entry(name):
         r = results[name]

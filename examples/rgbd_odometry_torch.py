@@ -17,9 +17,12 @@ With ``--slam`` it runs ``SlamSystem`` (keyframes, local map, local BA,
 BoW relocalization), then ``shutdown`` (global BA), and writes the
 trajectory and the keyframe trajectory (``<out>_keyframes.txt``); with
 ``--dyna --fused --slam`` each frame is one ``track_fused`` call with the
-track readback deferred. It runs on the CUDA device unless ``--device cpu``
-is given, and raises when there is none. ``--map`` (dense mapping) is not
-ported yet and exits with a message.
+track readback deferred. ``--map m.pcd`` builds a dense voxel map
+(``DenseMapper``) from every ``keyframe_decimation``-th frame, with the
+front-end's mask and cluster labels when there is a front-end (in the
+``track_fused`` loop, at the deferred pose that call returns), and saves
+it after the outlier filter. It runs on the CUDA device unless
+``--device cpu`` is given, and raises when there is none.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ def main() -> int:
     ap.add_argument("--slam", action="store_true",
                     help="full SLAM (keyframes + local BA + global BA at the end)")
     ap.add_argument("--map", dest="map_out",
-                    help="dense voxel map to a .pcd: not ported yet")
+                    help="build a dense voxel map and save it to this .pcd")
     ap.add_argument("--fused", action="store_true",
                     help="with --dyna: use the fused front-end "
                          "(flow+cluster+mask+ORB in one call, frontend_step)")
@@ -56,18 +59,12 @@ def main() -> int:
     ap.add_argument("--eval-ate", action="store_true",
                     help="evaluate ATE against ground truth when available")
     ap.add_argument("--timing", action="store_true",
-                    help="print per-stage timing means at exit")
+                    help="print per-stage timing means and the CUDA kernel "
+                         "launches of the run at exit")
     ap.add_argument("--device", default=None,
                     help="torch device; default CUDA (raises without one), "
                          "'cpu' for the plain PyTorch path")
     args = ap.parse_args()
-
-    if args.map_out:
-        print("--map is not available in the PyTorch port yet: dense mapping "
-              "(mapping/dense.py) is slice 6 in ROADMAP.md Queue 1. Use "
-              "examples/rgbd_odometry.py --map for the JAX package.",
-              file=sys.stderr)
-        return 2
 
     import torch
 
@@ -129,6 +126,11 @@ def main() -> int:
         from sindslam_tpu_torch.slam.system import SlamSystem
 
         slam = SlamSystem(cfg, device=dev)
+    mapper = None
+    if args.map_out:
+        from sindslam_tpu_torch.mapping.dense import DenseMapper
+
+        mapper = DenseMapper(cam, cfg.mapping, device=dev)
     tracker = OdometryTracker(cam, cfg.tracking, device=dev)
     zero_mask = torch.zeros((cam.height, cam.width), dtype=torch.int32,
                             device=dev)
@@ -149,7 +151,12 @@ def main() -> int:
             rgb_t = torch.from_numpy(np.ascontiguousarray(rgb)).to(dev)
             d = torch.from_numpy(np.ascontiguousarray(depth)).to(dev, torch.float32)
             with timer.stage("frontend+track (track_fused)"):
-                Tcw, is_kf, _out = slam.track_fused(rgb_t, d, ts)
+                Tcw, is_kf, out = slam.track_fused(rgb_t, d, ts)
+            if mapper is not None and \
+                    n_done % cfg.mapping.keyframe_decimation == 0:
+                with timer.stage("map insert_keyframe"):
+                    mapper.insert_keyframe(rgb_t, d, out.dyna_mask,
+                                           out.label_img, Tcw)
             t_total += time.time() - t0
             t_track += time.time() - t0
             timestamps.append(ts)
@@ -166,20 +173,22 @@ def main() -> int:
         d = torch.from_numpy(np.ascontiguousarray(depth)).to(dev, torch.float32)
         g = im.rgb_to_gray(rgb_t)
         t1 = t0
+        map_mask = label = None
         if args.dyna and args.fused:
             if fused_state is None:
                 fused_state = init_state(cfg, g, device=dev)
             with timer.stage("frontend(fused)"):
                 out, fused_state = frontend_step(rgb_t, d, fused_state, cfg)
             frame = frame_from_frontend(out, ts)
+            map_mask, label = out.dyna_mask, out.label_img
             t1 = time.time()
             t_detect += t1 - t0
         else:
             mask = zero_mask
             if dyna is not None:
                 with timer.stage("dyna_detect"):
-                    mask, _label = dyna.detect(rgb_t, d)
-                    mask = dilate_mask_for_tracking(mask, cfg.dyna)
+                    map_mask, label = dyna.detect(rgb_t, d)
+                    mask = dilate_mask_for_tracking(map_mask, cfg.dyna)
                 t1 = time.time()
                 t_detect += t1 - t0
             with timer.stage("orb"):
@@ -193,6 +202,11 @@ def main() -> int:
             else:
                 Tcw, info = tracker.track(frame)
         t_track += time.time() - t1
+        if mapper is not None and n_done % cfg.mapping.keyframe_decimation == 0:
+            if map_mask is None:       # no front-end: no mask, no clusters
+                map_mask = label = zero_mask
+            with timer.stage("map insert_keyframe"):
+                mapper.insert_keyframe(rgb_t, d, map_mask, label, Tcw)
         t_total += time.time() - t0
         timestamps.append(ts)
         poses_twc.append(np.linalg.inv(Tcw))
@@ -226,8 +240,29 @@ def main() -> int:
     print(f"tracked {n_done} frames on {dev} | mean/frame: total "
           f"{1000*t_total/n_done:.1f} ms{split} | trajectory -> {args.out}")
 
+    if mapper is not None:
+        with timer.stage("map save_pcd (filtered)"):
+            mapper.save_pcd(args.map_out)
+        with timer.stage("map export (filtered)"):
+            centers, _ = mapper.export_cloud()
+        raw, _ = mapper.export_cloud(filtered=False)
+        print(f"dense map: {len(centers)} occupied voxels ({len(raw)} before "
+              f"the outlier filter), {mapper.n_inserted} keyframes inserted, "
+              f"insert_keyframe {timer.mean_ms('map insert_keyframe'):.2f} ms "
+              f"each, filtered export "
+              f"{timer.mean_ms('map export (filtered)'):.2f} ms -> "
+              f"{args.map_out}")
+        mapper.close()
+
     if args.timing:
+        import json
+
+        from sindslam_tpu_torch.ops import cuda_kernels as ck
+
         print(timer.report())
+        # the kernel wrappers' launch counts of this run (0 on the CPU,
+        # where each runs its plain version)
+        print(f"kernel launches: {json.dumps(ck.LAUNCHES)}")
 
     if args.eval_ate:
         from sindslam_tpu_torch.evaluation import evaluate_ate

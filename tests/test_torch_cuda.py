@@ -26,6 +26,12 @@ against the CPU by ``chip_smoke.py``'s loop checks: ``ransac_rigid`` with the
 same draws gives the same inlier mask, it and its IRLS refinement
 transforms within 1e-4 (tangent norm), and ``optimize_pose_graph`` poses
 within 1e-4 plus the CPU's own float32 distance from a float64 solve.
+The modes of slices 6-7 by ``chip_smoke.py``'s checks of phases 13-15:
+``keyframe_to_voxels`` with every field equal and at most 1 % of the valid
+records in a voxel 1 off on an axis, the Sim(3) RANSAC and pose graph as
+the rigid ones, ``initialize_monocular`` with the same model and inlier
+mask and R, t within 1e-4, ``stereo_match`` with equal matches and depths
+within 1e-5 relative.
 """
 
 import numpy as np
@@ -463,3 +469,68 @@ def test_loop_solvers_on_the_card_equal_the_cpu(cuda_device):
     assert out["pose_err"] <= chip_smoke.POSE_TOL and out["n_inliers"] >= 70
     out = chip_smoke.pose_graph_cuda_vs_cpu(torch, seeded_pose_graph(), 20)
     assert out["pose_err"] <= chip_smoke.POSE_TOL and out["moved"] > 0.01
+
+
+@pytest.mark.cuda
+def test_mode_solvers_on_the_card_equal_the_cpu(cuda_device):
+    """The checks of ``chip_smoke.py`` phases 13-15 on seeded inputs: the
+    board scenario's keyframe through ``keyframe_to_voxels`` (every field
+    equal, voxels by ``VOX_FLIP_FRAC``), the Sim(3) RANSAC and pose graph,
+    ``initialize_monocular`` on an analytic two-view scene and
+    ``stereo_match`` on a rendered pair."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    from sindslam_tpu_torch import config as t_config
+    from sindslam_tpu_torch.config import MappingConfig
+    from sindslam_tpu_torch.datasets.synthetic import (make_default_scene,
+                                                       make_trajectory)
+    from sindslam_tpu_torch.frontend import orb
+    from sindslam_tpu_torch.ops import image as im
+
+    cam = CameraConfig(cx=319.5, cy=239.5)
+    scene = make_default_scene(0, with_dynamic=True)
+    pose = make_trajectory(3, 0.05)[1]
+    rgb, depth, dyn = scene.render(pose)
+    mask = np.where(depth > 0, 125, 0).astype(np.int32)
+    label = np.where(depth > 0, 1 + (depth > 3.0).astype(np.int32), 0)
+    label[dyn] = 3
+    Tcw = np.linalg.inv(pose).astype(np.float32)
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+            (rgb, depth, mask, label, pose.astype(np.float32), depth, mask, Tcw)]
+    out = chip_smoke.voxels_cuda_vs_cpu(torch, args, cam, MappingConfig())
+    assert out["n_valid"] > 10000
+    out = chip_smoke.ransac_cuda_vs_cpu(
+        torch, *chip_smoke.seeded_sim3_problem(torch), sim3=True)
+    assert out["n_inliers"] >= 70
+    out = chip_smoke.pose_graph_cuda_vs_cpu(
+        torch, chip_smoke.seeded_sim3_graph(torch), 25, sim3=True)
+    assert out["moved"] > 0.05
+
+    rng = np.random.default_rng(0)
+    X = np.stack([rng.uniform(-2, 2, 300), rng.uniform(-1.5, 1.5, 300),
+                  rng.uniform(2.5, 7.0, 300)], -1)
+    K = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1]])
+    c, s = np.cos(0.06), np.sin(0.06)
+    R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+    p1 = (X / X[:, 2:]) @ K.T
+    X2 = X @ R.T + np.array([0.25, 0.02, 0.01])
+    p2 = (X2 / X2[:, 2:]) @ K.T
+    out = chip_smoke.init_cuda_vs_cpu(
+        torch, (p1[:, :2] + rng.normal(0, 0.3, (300, 2))).astype(np.float32),
+        (p2[:, :2] + rng.normal(0, 0.3, (300, 2))).astype(np.float32), 1, cam)
+    assert out["model"] == "F"
+
+    stereo_scene = make_default_scene(6, with_dynamic=False)
+    T_right = np.eye(4)
+    T_right[0, 3] = cam.baseline
+    gl, gr = (im.rgb_to_gray(torch.from_numpy(stereo_scene.render(T)[0]).cuda())
+              for T in (np.eye(4), T_right))
+    zero = torch.zeros((480, 640), dtype=torch.int32, device="cuda")
+    cfg = chip_smoke.example_config(t_config)
+    fl, fr = (orb.extract_orb(g, zero, cfg.orb) for g in (gl, gr))
+    out = chip_smoke.stereo_match_cuda_vs_cpu(torch, fl, fr, gl, gr, cam)
+    assert out["n_matched"] > 200

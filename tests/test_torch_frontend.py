@@ -114,7 +114,9 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
-    yield os.path.join(ROOT, "examples", "rgbd_odometry_torch.py")
+    for name in ("rgbd_odometry", "mono_odometry", "stereo_odometry",
+                 "ar_demo", "associate", "evaluate_ate", "evaluate_rpe"):
+        yield os.path.join(ROOT, "examples", f"{name}_torch.py")
     yield os.path.join(ROOT, "tools", "torch_probe_sor_inner.py")
     yield os.path.join(ROOT, "tools", "torch_probe_pose_solve.py")
     yield os.path.join(ROOT, "tools", "torch_probe_ba.py")
@@ -132,7 +134,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "utils/profiling.py", "convert.py", "slam/ba.py",
                 "slam/gba.py", "slam/triangulation.py", "slam/local_map.py",
                 "slam/bow.py", "slam/pnp.py", "slam/loop_closing.py",
-                "slam/system.py", "geometry/sim3.py", "slam/pose_graph.py"):
+                "slam/system.py", "geometry/sim3.py", "slam/pose_graph.py",
+                "runtime/native.py", "mapping/dense.py", "slam/initializer.py",
+                "slam/mono.py", "slam/stereo.py", "parallel/batch_frontend.py",
+                "viz/ar.py", "viz/viewer.py"):
         assert os.path.join("sindslam_tpu_torch", *sub.split("/")) in scanned
     for path in _port_sources():
         with open(path) as f:
@@ -157,7 +162,7 @@ def test_reference_tools_import_jax_only_where_they_run_it():
     (argument parsing, ``--help``, ``use_tpu_brief``'s import by the other
     tool) needs neither."""
     for name in ("torch_slam_reference.py", "torch_loop_reference.py",
-                 "torch_odometry_reference.py"):
+                 "torch_odometry_reference.py", "torch_modes_reference.py"):
         path = os.path.join(ROOT, "tools", name)
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -188,16 +188,6 @@ def test_odometry_script_runs_on_the_cpu_and_writes_a_trajectory(tmp_path):
     assert res.n_pairs == 6 and res.rmse < 0.05, str(res)
 
 
-@pytest.mark.parametrize("flag", [("--slam", "--map", "map.pcd"),
-                                  ("--map", "map.pcd")])
-def test_odometry_script_refuses_the_modes_not_ported(tmp_path, flag):
-    run = _run_script("--synthetic", "--frames", "2", "--device", "cpu", *flag,
-                      cwd=tmp_path)
-    assert run.returncode != 0
-    assert "ROADMAP.md" in run.stderr and "not available" in run.stderr
-    assert not (tmp_path / "CameraTrajectory.txt").exists()
-
-
 def test_odometry_script_raises_without_a_card_unless_asked_for_the_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

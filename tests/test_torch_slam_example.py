@@ -1,7 +1,7 @@
 """The torch example script's ``--slam`` on the CPU, as a subprocess: with
 and without ``--dyna --fused`` it writes the trajectory and the keyframe
-trajectory and prints an ATE; ``--map`` still exits 2; without a card and
-without ``--device cpu`` it raises.
+trajectory and prints an ATE; without a card and without ``--device cpu``
+it raises (``--map`` is held by ``tests/test_torch_map_script.py``).
 """
 
 import os
@@ -51,13 +51,6 @@ def test_example_script_slam_writes_both_trajectories(tmp_path, fused):
     gt = np.stack([f[3][:3, 3] for f in frames])
     res = evaluate_ate(np.array([f[4] for f in frames]), gt, ts, poses[:, :3])
     assert res.rmse < (0.2 if fused else 0.05), str(res)
-
-
-def test_example_script_still_refuses_the_dense_map(tmp_path):
-    run = _run_script("--synthetic", "--frames", "2", "--device", "cpu",
-                      "--slam", "--map", "map.pcd", cwd=tmp_path)
-    assert run.returncode == 2 and "not available" in run.stderr
-    assert not (tmp_path / "CameraTrajectory.txt").exists()
 
 
 def test_example_script_slam_raises_without_a_card(tmp_path):
