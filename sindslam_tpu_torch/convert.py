@@ -90,7 +90,7 @@ def state_from_numpy(s: Any, device=None, seed: int = 0) -> FrontendState:
     seeded with ``seed``."""
     dev = resolve_device(device)
     t = _to(dev)
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator(device="cpu")
     gen.manual_seed(seed)
     return FrontendState(
         pyr_m1=tuple(t(p) for p in s.pyr_m1),
@@ -135,3 +135,161 @@ def vocabulary_from_numpy(v: Any) -> Vocabulary:
     and uint32 node words (host numpy in both packages)."""
     return Vocabulary(k=int(v.k), levels=int(v.levels),
                       nodes=[np.array(n, np.uint32) for n in v.nodes])
+
+
+# ------------------------------------------- a whole SLAM state, in memory
+
+def keyframe_from_reference(k: Any, device=None):
+    """The port's ``KeyFrame`` from a reference one: the same id, pose,
+    associations, timestamp and cull flag; the frame's tensors and the
+    host copy converted (descriptors as the same bits)."""
+    from sindslam_tpu_torch.slam.frame import HostFrame
+    from sindslam_tpu_torch.slam.local_map import KeyFrame
+
+    host = None
+    if k.host is not None:
+        h = k.host
+        host = HostFrame(*(np.array(x) for x in h))
+        host = host._replace(desc=np.ascontiguousarray(host.desc, np.uint32))
+    return KeyFrame(kf_id=int(k.kf_id), frame=frame_from_numpy(k.frame, device),
+                    Tcw=np.array(k.Tcw), point_ids=np.array(k.point_ids),
+                    timestamp=float(k.timestamp), culled=bool(k.culled),
+                    host=host)
+
+
+_MAP_ARRAYS = ("pos", "desc", "valid", "n_obs", "n_found", "n_visible",
+               "created_kf")
+
+
+def map_from_reference(m: Any, cfg: SystemConfig, device=None):
+    """The port's ``LocalMap`` in the state of a reference ``LocalMap``:
+    the same point arrays, observation pairs and keyframes."""
+    from sindslam_tpu_torch.slam.local_map import LocalMap
+
+    out = LocalMap(cfg.camera, cfg.tracking, device=device)
+    for name in _MAP_ARRAYS:
+        getattr(out, name)[:] = getattr(m, name)
+    out._next = int(m._next)
+    out._obs_pid = np.array(m._obs_pid)
+    out._obs_kf = np.array(m._obs_kf)
+    out.mono = bool(m.mono)
+    out._map_version = int(m._map_version)
+    out.keyframes = [keyframe_from_reference(k, out.device)
+                     for k in m.keyframes]
+    return out
+
+
+def relocalizer_from_reference(r: Any, cfg: SystemConfig, keyframes,
+                               device=None):
+    """The port's ``Relocalizer`` in the state of a reference one: the
+    vocabulary, the keyframe database, the corpus and its generator, the
+    consistency window and the loop bookkeeping. ``keyframes`` are the
+    port's keyframes, indexed by id, that the state refers to. Injected
+    draws are the caller's to set."""
+    import copy
+
+    from sindslam_tpu_torch.slam.bow import BowSignature, KeyFrameDatabase
+    from sindslam_tpu_torch.slam.loop_closing import Relocalizer
+
+    vocab = None if r.vocab is None else vocabulary_from_numpy(r.vocab)
+    out = Relocalizer(cfg, vocab=vocab, device=device)
+    if r.db is not None:
+        out.db = KeyFrameDatabase(vocab)
+        out.db.inverted = {int(w): list(ids) for w, ids in r.db.inverted.items()}
+        out.db.signatures = {
+            int(i): BowSignature(np.array(s.words), np.array(s.weights))
+            for i, s in r.db.signatures.items()}
+    out._kf_words = {int(i): np.array(w) for i, w in r._kf_words.items()}
+    out._pending_descs = [np.array(d) for d in r._pending_descs]
+    out._pending_kfs = [keyframes[k.kf_id] for k in r._pending_kfs]
+    out._kfs = [keyframes[k.kf_id] for k in r._kfs]
+    out._corpus = [np.array(d) for d in r._corpus]
+    out._corpus_total = int(r._corpus_total)
+    out._corpus_rng.bit_generator.state = copy.deepcopy(
+        r._corpus_rng.bit_generator.state)
+    out._consistent_groups = [(set(g), int(c))
+                              for g, c in r._consistent_groups]
+    out._loop_edges = [tuple(e) for e in r._loop_edges]
+    out.loop_scales = list(r.loop_scales)
+    for name in ("loops_closed", "loops_rejected", "_last_loop_kf_id",
+                 "vocab_k", "growth_enabled", "corpus_per_kf", "corpus_cap",
+                 "consistency_th"):
+        setattr(out, name, getattr(r, name))
+    return out
+
+
+_SYSTEM_SCALARS = ("frames_since_kf", "ref_tracked", "lost", "_frame_count",
+                   "enable_loop_closing", "mono_depth_from_map",
+                   "_track_health")
+
+
+def system_from_reference(s: Any, device=None, pending: str = "redo"):
+    """The port's ``SlamSystem`` in the state a reference ``SlamSystem``
+    holds between two frames: map, keyframes, tracker state (``Tcw``,
+    ``velocity``, ``prev_frame``, ``ref_tracked``, ``frames_since_kf``),
+    trajectory records, relocalizer and the deferred mapping stages, so
+    that the next ``track_frame`` of both starts from one state.
+
+    A deferred stage was dispatched on the state the reference holds now
+    (a stage is queued in the frame that leaves it pending). With
+    ``pending="redo"`` the port dispatches it again on that state (its own
+    triangulation, or its own local BA on the reference's BA problem);
+    with ``pending="carry"`` it takes the reference's result as the host
+    copy, so the next step runs no stage of its own there. Step-wise
+    tracking only: a deferred track step does not carry."""
+    from sindslam_tpu_torch.slam.ba import local_bundle_adjustment
+    from sindslam_tpu_torch.slam.system import SlamSystem, _FrameRecord
+
+    if s._track_pending is not None or s._track_queue or s._stats_pending:
+        raise ValueError("the reference holds a deferred track step")
+    if pending not in ("redo", "carry"):
+        raise ValueError(f"pending must be 'redo' or 'carry', not {pending!r}")
+    cfg = config_from_dict(dataclasses.asdict(s.cfg))
+    out = SlamSystem(cfg, device=device)
+    out.map = map_from_reference(s.map, cfg, out.device)
+    kfs = {k.kf_id: k for k in out.map.keyframes}
+    out.relocalizer = relocalizer_from_reference(s.relocalizer, cfg, kfs,
+                                                 out.device)
+    out.Tcw = np.array(s.Tcw)
+    out.velocity = np.array(s.velocity)
+    for name in _SYSTEM_SCALARS:
+        setattr(out, name, getattr(s, name))
+    out.prev_frame = (None if s.prev_frame is None
+                      else frame_from_numpy(s.prev_frame, out.device))
+    out.records = [_FrameRecord(float(r.timestamp), int(r.ref_kf_id),
+                                np.array(r.T_rel), bool(r.lost))
+                   for r in s.records]
+    for stage in s._pending:
+        kf = kfs[stage[1].kf_id]
+        if stage[0] == "tri":
+            host = kf.h
+            if pending == "redo":
+                out._pending.append(("tri", kf, host,
+                                     out._dispatch_triangulation(kf, host)))
+                continue
+            tri = stage[3]
+            if tri is None:
+                out._pending.append(("tri", kf, host, None))
+                continue
+            packed = np.array(tri[0], np.float32)
+            dev = torch.from_numpy(packed).to(out.device)
+            out._pending.append(("tri", kf, host, (dev, np.array(tri[1])),
+                                 packed.ravel()))
+            continue
+        handle = stage[2]
+        if handle is None:
+            out._pending.append(("ba", kf, None))
+            continue
+        res, problem, window, lut = handle
+        problem_t = ba_problem_from_numpy(problem, out.device)
+        window_t = [kfs[k.kf_id] for k in window]
+        if pending == "redo":
+            res_t = local_bundle_adjustment(problem_t, cfg.camera,
+                                            cfg.tracking)
+            out._pending.append(("ba", kf, (res_t, problem_t, window_t,
+                                            np.array(lut))))
+            continue
+        packed = np.array(res.packed, np.float32).ravel()
+        out._pending.append(("ba", kf, (None, problem_t, window_t,
+                                        np.array(lut)), packed))
+    return out

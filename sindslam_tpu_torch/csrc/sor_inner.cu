@@ -2,7 +2,7 @@
 //
 // Replaces sor_inner_pallas (sindslam_tpu/ops/pallas_kernels.py:169-199,
 // body _make_kernel 55-163). `inner` lagged re-weightings (robust data,
-// gradient and smoothness weights, each rsqrt(x^2 + 1e-6)), each followed by
+// gradient and smoothness weights, each 1 / sqrt(x^2 + 1e-6)), each followed by
 // `sweeps` red-black SOR sweeps on (du, dv) with relaxation omega.
 //
 // Bound on the H100: launch latency and barriers, not bytes or operations.
@@ -38,9 +38,12 @@
 // psi_s is computed once per pixel. The edge weights are symmetric
 // (w_down(r, c) = w_up(r + 1, c), w_right(r, c) = w_left(r, c + 1), the sum
 // of the same two floats), so two fields serve four directions.
-// Arithmetic: the expression shapes of the stepwise kernel this replaces
-// and of the Pallas body, (alpha * w) * inv * neighbour summed left to
-// right, so nvcc contracts the same products into FMAs.
+// Arithmetic: the expression shapes of the plain version
+// (cuda_kernels.sor_inner_plain), (alpha * w) * inv * neighbour summed left
+// to right, built with --fmad=false (ops/_build.py), with IEEE sqrtf and
+// division in place of rsqrtf: every operation rounds once, as each PyTorch
+// op of the plain version does on the card and on the CPU, so the kernel
+// gives the plain version's bits.
 
 #include <cuda_runtime.h>
 
@@ -149,7 +152,7 @@ sor_tile_kernel(Level L, const float* __restrict__ du_in,
         const float vx = (V(rc + cr) - V(rc + cl)) * 0.5f;
         const float vy = (V(rd + lc) - V(ru + lc)) * 0.5f;
         s_ps[rc + lc] =
-            rsqrtf(ux * ux + uy * uy + vx * vx + vy * vy + kEps2);
+            1.0f / sqrtf(ux * ux + uy * uy + vx * vx + vy * vy + kEps2);
       }
     }
     __syncthreads();
@@ -184,10 +187,11 @@ sor_tile_kernel(Level L, const float* __restrict__ du_in,
         const float d_u = s_du[i], d_v = s_dv[i];
 
         const float r_data = iz + ix * d_u + iy * d_v;
-        const float psi_d = rsqrtf(r_data * r_data + kEps2);
+        const float psi_d = 1.0f / sqrtf(r_data * r_data + kEps2);
         const float gx = ixz + ixx * d_u + ixy * d_v;
         const float gy = iyz + ixy * d_u + iyy * d_v;
-        const float psi_g = rsqrtf(gx * gx + gy * gy + kEps2) * P.gamma;
+        const float psi_g =
+            1.0f / sqrtf(gx * gx + gy * gy + kEps2) * P.gamma;
 
         const float a11 = psi_d * ix * ix + psi_g * (ixx * ixx + ixy * ixy);
         const float a12 = psi_d * ix * iy + psi_g * (ixx * ixy + ixy * iyy);

@@ -74,7 +74,8 @@ class DynaDetector:
         self._flow_w = (torch.zeros(wsz, dtype=torch.float32, device=dev),
                         torch.zeros(wsz, dtype=torch.float32, device=dev))
         self._frame_idx = 0
-        self._generator = torch.Generator(device=dev)
+        # a CPU generator on every device: the card draws the CPU's numbers
+        self._generator = torch.Generator(device="cpu")
         self._generator.manual_seed(seed)
 
     def detect(self, rgb, depth_m,
@@ -125,7 +126,7 @@ class DynaDetector:
 
         # ---- sampling weights from the previous mask / ratios
         if jitter is None:
-            jitter = torch.randn((h, w), generator=self._generator, device=dev)
+            jitter = torch.randn((h, w), generator=self._generator)
         wmap = sample_weights(self._prev_mask, self._prev_ratio_img, cfg.dyna,
                               jitter.to(dev))
         if gumbel is None:

@@ -5,9 +5,10 @@ the driver dilation and masked ORB for one RGB-D frame.
 
 ``init_state`` and ``frontend_step`` are the entry points. They run on CUDA
 unless ``init_state`` is given ``device="cpu"``; ``frontend_step`` runs
-where its state lives. The random draws come from the ``torch.Generator``
-in the state, or are passed in (``jitter``, ``gumbel``) by tests that
-inject the reference's ``jax.random`` draws.
+where its state lives. The random draws come from the state's CPU
+``torch.Generator`` (so the card draws the CPU's numbers), or are passed
+in (``jitter``, ``gumbel``) by tests that inject the reference's
+``jax.random`` draws.
 """
 
 from __future__ import annotations
@@ -74,7 +75,9 @@ def init_state(cfg: SystemConfig, gray0, device=None, seed: int = 0
     pyr0 = flow_ops.working_pyramid(_as_tensor(gray0, dev, torch.float32),
                                     cfg.flow)
     wsz = (cfg.flow.working_height, cfg.flow.working_width)
-    gen = torch.Generator(device=dev)
+    # a CPU generator on every device: a card generator streams other
+    # numbers than the CPU's for one seed
+    gen = torch.Generator(device="cpu")
     gen.manual_seed(seed)
     return FrontendState(
         pyr_m1=pyr0, pyr_m2=pyr0, prev_large=False,

@@ -22,8 +22,12 @@ from typing import Dict, Iterable
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "csrc")
 KERNEL_SOURCES = ("sor_inner", "cc_labels", "fast_nms", "extract_patches")
+# --fmad=false: no multiply-add contraction, so that a kernel rounds each
+# operation once, as each PyTorch op of its plain version does (K1 is then
+# its plain version bit for bit, as K2-K4 already were)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

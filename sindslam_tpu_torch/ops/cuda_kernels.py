@@ -102,11 +102,22 @@ def _shift(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
 
 # ---------------------------------------------------------------- K1 -------
 
+def _inv_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """``1 / sqrt(x)`` with the correctly rounded float32 square root (the
+    kernel's ``sqrtf``) on every device: the float64 root rounded to
+    float32 is the float32 root (53 >= 2 * 24 + 2 bits). ``torch.rsqrt``
+    is the approximate ``rsqrtf`` on the card, and the CPU's float32
+    ``torch.sqrt`` is off by an ulp for ~0.6 % of inputs."""
+    return 1.0 / torch.sqrt(x.double()).to(x.dtype)
+
+
 def sor_inner_plain(ix, iy, iz, ixx, ixy, iyy, ixz, iyz, u, v, *,
                     alpha: float, gamma: float, omega: float, inner: int,
                     sweeps: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Pallas body of ``sor_inner_pallas`` in plain PyTorch: the same
-    folded sweep-invariant terms, the same red-black order."""
+    folded sweep-invariant terms, the same red-black order, each operation
+    rounded once as the kernel (built without contraction) rounds it, so
+    the two agree bit for bit on the card and on the CPU."""
     h, w = ix.shape
     dev = ix.device
     rows = torch.arange(h, device=dev)[:, None]
@@ -119,17 +130,17 @@ def sor_inner_plain(ix, iy, iz, ixx, ixy, iyy, ixz, iyz, u, v, *,
     dv = torch.zeros_like(ix)
     for _ in range(inner):
         r_data = iz + ix * du + iy * dv
-        psi_d = torch.rsqrt(r_data * r_data + _EPS2)
+        psi_d = _inv_sqrt(r_data * r_data + _EPS2)
         gx = ixz + ixx * du + ixy * dv
         gy = iyz + ixy * du + iyy * dv
-        psi_g = torch.rsqrt(gx * gx + gy * gy + _EPS2) * gamma
+        psi_g = _inv_sqrt(gx * gx + gy * gy + _EPS2) * gamma
         U = u + du
         V = v + dv
         ux = (_shift(U, 0, 1) - _shift(U, 0, -1)) * 0.5
         uy = (_shift(U, 1, 0) - _shift(U, -1, 0)) * 0.5
         vx = (_shift(V, 0, 1) - _shift(V, 0, -1)) * 0.5
         vy = (_shift(V, 1, 0) - _shift(V, -1, 0)) * 0.5
-        psi_s = torch.rsqrt(ux * ux + uy * uy + vx * vx + vy * vy + _EPS2)
+        psi_s = _inv_sqrt(ux * ux + uy * uy + vx * vx + vy * vy + _EPS2)
         w_up = torch.where(ok_up, 0.5 * (psi_s + _shift(psi_s, -1, 0)), 0.0)
         w_down = torch.where(ok_down, 0.5 * (psi_s + _shift(psi_s, 1, 0)), 0.0)
         w_left = torch.where(ok_left, 0.5 * (psi_s + _shift(psi_s, 0, -1)), 0.0)

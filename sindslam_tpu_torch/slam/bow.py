@@ -173,7 +173,7 @@ def train_vocabulary(descs: np.ndarray, k: int = 8, levels: int = 3,
     with ``seed``, as in the reference."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator(device="cpu")   # the same draws on every device
     gen.manual_seed(seed)
     descs = np.ascontiguousarray(descs, np.uint32)
     n = len(descs)

@@ -357,7 +357,7 @@ class Relocalizer:
         if draws is not None:
             g = np.array(draws(data, n_hyp, n), np.float32)
             return torch.from_numpy(g).to(self.device)
-        gen = torch.Generator(device=self.device)
+        gen = torch.Generator(device="cpu")   # the same draws on every device
         gen.manual_seed((self._base_seed << 32) + data)
         return gumbel_draws(n_hyp, n, gen, self.device)
 

@@ -6,10 +6,11 @@ import no JAX, so they run where JAX is not installed:
 
 (``--noconftest``: the suite's conftest imports JAX.)
 
-Tolerances as in ``tests/test_torch_kernels.py``: K1 atol 1e-4 / rtol
-1e-3 (FMA contraction and ``rsqrtf`` against PyTorch's ops) in both of its
-regimes (one block for a small level, tiles with a halo for a large one),
-K2-K4 and the fused BRIEF exact: K2 at budgets under, at and between
+Every kernel equal to its plain version bit for bit: K1 (built without
+multiply-add contraction, with IEEE ``sqrtf`` and division, as each op of
+its plain version rounds) against the plain version on the card and on the
+CPU, in both of its regimes (one block for a small level, tiles with a halo
+for a large one), K2-K4 and the fused BRIEF: K2 at budgets under, at and between
 multiples of its sweeps per launch and where the budget binds, K3 on one
 level and on an atlas of levels in one launch. Tracking on the card is held
 against tracking on the CPU by the check ``chip_smoke.py`` runs: equal match
@@ -198,9 +199,10 @@ def test_cuda_kernels_match_plain(cuda_device):
     rng = np.random.default_rng(0)
     data = [torch.from_numpy(a).to(dev) for a in _level_data(57, 75, 3)]
     kw = dict(alpha=0.197, gamma=50.0, omega=1.9, inner=5, sweeps=8)
-    for got, ref in zip(ck.sor_inner(*data, **kw),
-                        ck.sor_inner_plain(*data, **kw)):
-        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-3)
+    for got, ref, ref_cpu in zip(
+            ck.sor_inner(*data, **kw), ck.sor_inner_plain(*data, **kw),
+            ck.sor_inner_plain(*(d.cpu() for d in data), **kw)):
+        assert torch.equal(got, ref) and torch.equal(got.cpu(), ref_cpu)
 
     labels = torch.from_numpy((rng.random((48, 64)) * 3).astype(np.int32)).to(dev)
     mask = torch.from_numpy(rng.random((48, 64)) < 0.7).to(dev)
@@ -242,9 +244,10 @@ def test_sor_inner_both_regimes_match_plain(cuda_device, h, w, inner, sweeps,
     data = [torch.from_numpy(a).to(cuda_device)
             for a in _level_data(h, w, h + w)]
     kw = dict(alpha=0.197, gamma=50.0, omega=1.9, inner=inner, sweeps=sweeps)
-    for got, ref in zip(ck.sor_inner(*data, **kw),
-                        ck.sor_inner_plain(*data, **kw)):
-        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-3)
+    for got, ref, ref_cpu in zip(
+            ck.sor_inner(*data, **kw), ck.sor_inner_plain(*data, **kw),
+            ck.sor_inner_plain(*(d.cpu() for d in data), **kw)):
+        assert torch.equal(got, ref) and torch.equal(got.cpu(), ref_cpu)
     assert ck.SOR_INNER_CUDA_LAUNCHES == {(h, w): [1, launches]}
 
 
@@ -534,3 +537,40 @@ def test_mode_solvers_on_the_card_equal_the_cpu(cuda_device):
     fl, fr = (orb.extract_orb(g, zero, cfg.orb) for g in (gl, gr))
     out = chip_smoke.stereo_match_cuda_vs_cpu(torch, fl, fr, gl, gr, cam)
     assert out["n_matched"] > 200
+
+
+@pytest.mark.cuda
+def test_random_draws_on_the_card_equal_the_cpu(cuda_device):
+    """The front-end state's and the detector's jitter and RANSAC draws,
+    the vocabulary's seeding draws and the relocalizer's PnP and loop draws
+    are the CPU's numbers on the card (each from a seeded CPU generator)."""
+    from sindslam_tpu_torch.config import SystemConfig
+    from sindslam_tpu_torch.frontend import pipeline as fp
+    from sindslam_tpu_torch.frontend.dyna_detect import DynaDetector
+    from sindslam_tpu_torch.ops.homography import gumbel_draws
+    from sindslam_tpu_torch.slam.bow import train_vocabulary
+    from sindslam_tpu_torch.slam.loop_closing import Relocalizer
+
+    cfg = SystemConfig()
+    gray = torch.zeros((cfg.camera.height, cfg.camera.width))
+    draws = {}
+    for dev in ("cpu", cuda_device):
+        st = fp.init_state(cfg, gray.to(dev), device=dev)
+        det = DynaDetector(cfg, device=dev)
+        g = st.generator
+        draws[str(dev)] = [
+            torch.randn((64, 64), generator=g, device=g.device).to(dev),
+            gumbel_draws(16, 64, g, dev),
+            gumbel_draws(16, 64, det._generator, dev),
+            Relocalizer(cfg, device=dev)._gumbel(None, 7919 * 5 + 2, 16, 64)]
+        for t in draws[str(dev)]:
+            assert t.device.type == torch.device(dev).type
+    for a, b in zip(draws["cpu"], draws[str(cuda_device)]):
+        assert torch.equal(a, b.cpu())
+    rng = np.random.default_rng(4)
+    descs = rng.integers(0, 2 ** 32, (3000, 8), dtype=np.uint64).astype(
+        np.uint32)
+    vc = train_vocabulary(descs, k=10, levels=3, device="cpu")
+    vg = train_vocabulary(descs, k=10, levels=3, device=cuda_device)
+    for a, b in zip(vc.nodes, vg.nodes):
+        np.testing.assert_array_equal(a, b)

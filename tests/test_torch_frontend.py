@@ -121,6 +121,7 @@ def _port_sources():
     yield os.path.join(ROOT, "tools", "torch_probe_pose_solve.py")
     yield os.path.join(ROOT, "tools", "torch_probe_ba.py")
     yield os.path.join(ROOT, "tools", "torch_probe_sum_order.py")
+    yield os.path.join(ROOT, "tools", "torch_probe_card_cpu.py")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

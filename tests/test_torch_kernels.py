@@ -576,3 +576,89 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
     assert all(c == 0 for c in ck.LAUNCHES.values())
     assert ck.SOR_INNER_CUDA_LAUNCHES == {}
     assert ck.CC_LABELS_CUDA_LAUNCHES == {}
+
+
+def _sor_inner_ieee_mirror(ix, iy, iz, ixx, ixy, iyy, ixz, iyz, u, v, *,
+                           alpha, gamma, omega, inner, sweeps):
+    """``sor_inner_plain`` in numpy float32, every operation rounded once
+    (IEEE, ``np.sqrt`` correctly rounded): what K1 computes on the card,
+    built without contraction."""
+    f32 = np.float32
+    a, g, om, eps = f32(alpha), f32(gamma), f32(omega), f32(1e-6)
+    h, w = ix.shape
+
+    def sh(x, dy, dx):
+        r = np.clip(np.arange(h) + dy, 0, h - 1)
+        c = np.clip(np.arange(w) + dx, 0, w - 1)
+        return x[r][:, c]
+
+    rows, cols = np.arange(h)[:, None], np.arange(w)[None, :]
+    red = (rows + cols) % 2 == 0
+    ok = [rows > 0, rows < h - 1, cols > 0, cols < w - 1]
+    nb = [(-1, 0), (1, 0), (0, -1), (0, 1)]
+    du, dv = np.zeros_like(ix), np.zeros_like(ix)
+
+    def inv_sqrt(x):
+        return f32(1.0) / np.sqrt(x)
+
+    for _ in range(inner):
+        r_data = iz + ix * du + iy * dv
+        psi_d = inv_sqrt(r_data * r_data + eps)
+        gx = ixz + ixx * du + ixy * dv
+        gy = iyz + ixy * du + iyy * dv
+        psi_g = inv_sqrt(gx * gx + gy * gy + eps) * g
+        U, V = u + du, v + dv
+        ux = (sh(U, 0, 1) - sh(U, 0, -1)) * f32(0.5)
+        uy = (sh(U, 1, 0) - sh(U, -1, 0)) * f32(0.5)
+        vx = (sh(V, 0, 1) - sh(V, 0, -1)) * f32(0.5)
+        vy = (sh(V, 1, 0) - sh(V, -1, 0)) * f32(0.5)
+        psi_s = inv_sqrt(ux * ux + uy * uy + vx * vx + vy * vy + eps)
+        wd = [np.where(o, f32(0.5) * (psi_s + sh(psi_s, dy, dx)), f32(0))
+              for o, (dy, dx) in zip(ok, nb)]
+        wsum = wd[0] + wd[1] + wd[2] + wd[3]
+        a11 = psi_d * ix * ix + psi_g * (ixx * ixx + ixy * ixy)
+        a12 = psi_d * ix * iy + psi_g * (ixx * ixy + ixy * iyy)
+        a22 = psi_d * iy * iy + psi_g * (ixy * ixy + iyy * iyy)
+        b_u = -(psi_d * ix * iz + psi_g * (ixx * ixz + ixy * iyz))
+        b_v = -(psi_d * iy * iz + psi_g * (ixy * ixz + iyy * iyz))
+        inv_du = f32(1.0) / (a11 + a * wsum + f32(1e-12))
+        inv_dv = f32(1.0) / (a22 + a * wsum + f32(1e-12))
+        su = (wd[0] * sh(u, -1, 0) + wd[1] * sh(u, 1, 0) + wd[2] * sh(u, 0, -1)
+              + wd[3] * sh(u, 0, 1) - wsum * u)
+        sv = (wd[0] * sh(v, -1, 0) + wd[1] * sh(v, 1, 0) + wd[2] * sh(v, 0, -1)
+              + wd[3] * sh(v, 0, 1) - wsum * v)
+        cu, cv = (b_u + a * su) * inv_du, (b_v + a * sv) * inv_dv
+        a12u, a12v = a12 * inv_du, a12 * inv_dv
+        wu = [a * x * inv_du for x in wd]
+        wv = [a * x * inv_dv for x in wd]
+        for _s in range(sweeps):
+            for m in (red, ~red):
+                n_u = [sh(du, dy, dx) for dy, dx in nb]
+                n_v = [sh(dv, dy, dx) for dy, dx in nb]
+                new_du = (cu - a12u * dv + wu[0] * n_u[0] + wu[1] * n_u[1]
+                          + wu[2] * n_u[2] + wu[3] * n_u[3])
+                new_dv = (cv - a12v * new_du + wv[0] * n_v[0]
+                          + wv[1] * n_v[1] + wv[2] * n_v[2] + wv[3] * n_v[3])
+                du = np.where(m, f32(1 - omega) * du + om * new_du, du)
+                dv = np.where(m, f32(1 - omega) * dv + om * new_dv, dv)
+    return du, dv
+
+
+@pytest.mark.parametrize("h,w,inner,sweeps,seed",
+                         [(40, 56, 2, 4, 0), (33, 44, 5, 8, 2)])
+def test_sor_inner_plain_rounds_each_operation_once(h, w, inner, sweeps,
+                                                    seed):
+    """K1's plain version equals an IEEE float32 mirror bit for bit: each
+    operation rounds once, the square root included, as the kernel rounds
+    without contraction. Pins the plain version's arithmetic on the CPU
+    (the CPU's float32 ``torch.sqrt`` is off by an ulp for ~0.6 % of
+    inputs; ``torch.rsqrt`` is exact there but the approximate ``rsqrtf``
+    on the card). The kernel against the plain version on the card and on
+    the CPU, bit for bit: ``tests/test_torch_cuda.py`` and
+    ``chip_smoke.py`` phases 3 and 5b."""
+    data = _level_data(h, w, seed)
+    kw = dict(alpha=0.197, gamma=50.0, omega=1.9, inner=inner, sweeps=sweeps)
+    du_m, dv_m = _sor_inner_ieee_mirror(*data, **kw)
+    du_t, dv_t = ck.sor_inner_plain(*map(torch.from_numpy, data), **kw)
+    np.testing.assert_array_equal(du_t.numpy(), du_m)
+    np.testing.assert_array_equal(dv_t.numpy(), dv_m)
