@@ -112,7 +112,25 @@
    zeroed before and read after, under deterministic sums, and holds each
    lane equal to the same pair or window run alone on the card; prints ms
    per pair and per frame;
-17. prints a ``{"kernels_off_main_path": [...]}`` line for the standalone
+17. runs the multi-device paths over a process group of
+   ``torch.cuda.device_count()`` ranks on NCCL, one process a card
+   (``parallel/launch.py``'s ``spawn``), and prints the world size:
+   ``dryrun_multichip`` (one stateful window a rank at the 0.25 scale and
+   at 640x480, each rank's lanes its own), then in one group the sharded
+   ``batch_frontend_step`` and ``batch_temporal_frontend`` on phase 16's
+   lanes (cycled to a multiple of the ranks) and the observation-sharded
+   ``joint_global_ba`` at the configured caps (128 keyframes, 32,768
+   points, 131,072 observations, 20 x 100 iterations) on a seeded problem,
+   each with the counters zeroed before and read after, under
+   deterministic sums, each path twice (the second call timed and held);
+   holds each lane equal to phase 16's, the global BA at one rank equal
+   bit for bit to the unsharded solve in this process (with more ranks,
+   poses and mean chi2 within ``tests/test_gba_multichip.py``'s
+   tolerances and points within ``BA_POINT_SIGMA`` of their standard
+   deviations), and every rank's poses, points and mean chi2 equal;
+   prints both global BA times. No multi-card figure comes from a
+   one-card machine;
+18. prints a ``{"kernels_off_main_path": [...]}`` line for the standalone
    patch gather (the main path reaches its loader only through the fused
    BRIEF kernel, so its launch count there is 0), a ``{"kernels": [...]}``
    line for the kernels the main path launches, then as its last line
@@ -217,6 +235,19 @@ STEREO_DEPTH_RTOL = 1e-5
 # Phase 16: the batched front-end, B pairs and lanes x frames of dyn_walk
 BATCH_PAIRS = ((2, 1), (4, 3), (6, 5), (8, 7))
 TEMPORAL_LANES = ((0, 1, 2, 3), (4, 5, 6, 7))
+# Phase 17: the observation-sharded global BA at the configured caps on a
+# seeded problem; at 1 rank equal to the unsharded solve bit for bit, and on
+# any mesh held to tests/test_gba_multichip.py's tolerances (poses, mean
+# chi2, and points in metres where their float64 information determines
+# them to MESH_DETERMINED_M in every direction) and, as phase 11 holds the
+# card to the CPU, every point with information to its own standard
+# deviations (BA_POINT_SIGMA, BA_POINT_SIGMA_MEAN). A point left with one
+# inlier (weak) or none slides along its ray, by metres in any solve, where
+# the order of the sums decides how far: such points are counted and
+# reported (sharded_gba_vs_alone; tools/torch_gba_mesh_witness.py)
+GBA_SEED, GBA_PER_POINT = 0, 4
+MESH_POSE_TOL, MESH_POINT_TOL, MESH_CHI2_TOL = 5e-4, 5e-3, 0.05
+MESH_DETERMINED_M = 1.0
 
 
 def check(cond: bool, what: str) -> None:
@@ -563,6 +594,88 @@ def point_information(torch, problem, poses, points, inlier, cam):
     H_o = (Jp.transpose(1, 2) @ Jp) * w[:, None, None]
     return torch.zeros((points.shape[0], 3, 3), dtype=torch.float64
                        ).index_add_(0, q.obs_pt.long(), H_o)
+
+
+def gba_gaps(torch, problem, cam, cfg, res, alone) -> dict:
+    """How far the joint global BA result ``res`` lies from ``alone``, both
+    of ``problem`` (any devices, float32 or float64): the largest pose
+    entry and mean chi2 gaps; the observations whose inlier class differs,
+    all and those whose chi2 at ``alone``'s solution lies farther from
+    their threshold than a step of ``BA_POINT_SIGMA`` deviations changes it
+    (as ``ba_cuda_vs_cpu``); and the points in three classes by the
+    float64 information of their inlier observations in ``alone``
+    (``point_information``): determined, their largest standard deviation
+    at most ``MESH_DETERMINED_M``; weak, with information but some
+    direction (most often along the ray of a point left with one inlier)
+    determined worse; none, with no inlier, whose place nothing but the
+    order of the sums decides. For each class its count and largest gap in
+    metres; the gap in standard deviations over every point with
+    information."""
+    from sindslam_tpu_torch.slam import ba
+
+    q64 = type(problem)(*(t.to("cpu", torch.float64) if t.is_floating_point()
+                          else t.cpu() for t in problem))
+    q64 = q64._replace(poses=alone.poses.cpu().double(),
+                       points=alone.points.cpu().double())
+    inl = alone.obs_inlier.cpu()
+    chi2 = ba._chi2_eval(q64, cam, ba._inv_sigma2(q64))[0]
+    thresh = torch.where(q64.obs_ur >= 0, cfg.chi2_stereo, cfg.chi2_mono)
+    band = 2 * BA_POINT_SIGMA * thresh.sqrt() + BA_POINT_SIGMA ** 2
+    flips = res.obs_inlier.cpu() != inl
+    H = point_information(torch, problem, q64.poses, q64.points, inl, cam)
+    informed = torch.diagonal(H, dim1=-2, dim2=-1).sum(-1) > 0
+    least = torch.linalg.eigvalsh(H)[:, 0]
+    determined = least >= MESH_DETERMINED_M ** -2
+    weak = informed & ~determined
+    d = res.points.cpu().double() - q64.points
+    gap = d.norm(dim=1)
+    sig = torch.sqrt(torch.einsum("pi,pij,pj->p", d, H, d).clamp(min=0))
+
+    def worst(x, where):
+        return float(x[where].max()) if bool(where.any()) else 0.0
+
+    return dict(
+        pose_gap=float((res.poses.cpu().double() - q64.poses).abs().max()),
+        chi2_gap=abs(float(res.mean_chi2) - float(alone.mean_chi2)),
+        n_flips=int(flips.sum()),
+        n_flips_far=int((flips & ((chi2 - thresh).abs() > band)).sum()),
+        n_inliers=int(inl.sum()),
+        n_determined=int(determined.sum()), point_gap=worst(gap, determined),
+        point_mean_gap=float(gap[determined].mean()),
+        sigma_gap=float(sig.max()), sigma_mean_gap=float(sig[informed].mean()),
+        n_weak=int(weak.sum()), weak_gap=worst(gap, weak),
+        weak_sigma_gap=worst(sig, weak),
+        n_uninformed=int((~informed).sum()),
+        uninformed_gap=worst(gap, ~informed))
+
+
+def sharded_gba_vs_alone(torch, problem, cam, cfg, res, alone) -> dict:
+    """The observation-sharded ``joint_global_ba`` result ``res`` against
+    the unsharded solve ``alone`` of the same ``problem`` (``gba_gaps``).
+    Raises unless the poses agree within ``MESH_POSE_TOL`` and the mean
+    chi2 within ``MESH_CHI2_TOL``, the inlier sets differ only near a
+    threshold, every determined point agrees within ``MESH_POINT_TOL`` m,
+    and every point with information within ``BA_POINT_SIGMA`` of its
+    standard deviations, ``BA_POINT_SIGMA_MEAN`` on average. Weak points
+    are held in their deviations only and points with no inlier
+    observation not at all: both are counted and their gaps reported.
+    Returns the gaps."""
+    out = gba_gaps(torch, problem, cam, cfg, res, alone)
+    check(out["n_flips_far"] == 0 and out["pose_gap"] <= MESH_POSE_TOL
+          and out["chi2_gap"] < MESH_CHI2_TOL
+          and out["point_gap"] <= MESH_POINT_TOL
+          and out["sigma_gap"] <= BA_POINT_SIGMA
+          and out["sigma_mean_gap"] <= BA_POINT_SIGMA_MEAN,
+          f"sharded global BA against the unsharded solve: inlier sets "
+          f"differ in {out['n_flips']} observations, {out['n_flips_far']} of "
+          f"them away from their threshold; poses {out['pose_gap']:.3g} (tol "
+          f"{MESH_POSE_TOL}), mean chi2 {out['chi2_gap']:.3g} "
+          f"({MESH_CHI2_TOL}); the {out['n_determined']} determined points "
+          f"{out['point_gap']:.3g} m ({MESH_POINT_TOL}); points with "
+          f"information {out['sigma_gap']:.3g} of their deviations "
+          f"({BA_POINT_SIGMA}), {out['sigma_mean_gap']:.3g} on average "
+          f"({BA_POINT_SIGMA_MEAN})")
+    return out
 
 
 def ransac_cuda_vs_cpu(torch, pa, pb, valid, gumbel,
@@ -1431,12 +1544,13 @@ def phase_stereo(torch, dev) -> None:
           f"within {out['ur_err']:.3g} px", flush=True)
 
 
-def phase_batch(torch, dev, cfg, rgbs, depths) -> None:
+def phase_batch(torch, dev, cfg, rgbs, depths):
     """Phase 16: ``batch_frontend_step`` on pairs of the phase-3 frames
     (``rgbs``, ``depths`` on ``dev``) and ``batch_temporal_frontend`` on
     lanes of them, the counts zeroed before each and read after; each lane
     against the same pair or window run alone. Deterministic sums, so that
-    a lane and its single run can be equal."""
+    a lane and its single run can be equal. Returns both paths' outputs,
+    which phase 17 holds its sharded lanes to."""
     from sindslam_tpu_torch.frontend import pipeline as fp
     from sindslam_tpu_torch.frontend.flow_mask import n_grid_samples
     from sindslam_tpu_torch.ops import cuda_kernels as ck
@@ -1507,6 +1621,244 @@ def phase_batch(torch, dev, cfg, rgbs, depths) -> None:
         check(batch_counts[name] > 0 and temporal_counts[name] > 0,
               f"kernel {name} never launched in the batched front-end")
     check(max(dyn) > 0, "batched front-end: no dynamic pixel in any lane")
+    return (masks, labels, feats), (masks_t, large_t, nf_t)
+
+
+def seeded_gba_problem(np, cam, n_kf: int, n_pts: int, per_point: int,
+                       seed: int, low_parallax: bool = False) -> dict:
+    """A joint global BA problem built with numpy from ``seed``: keyframes
+    20 cm apart along x on a slow turn, point p at 2-8 m in front of
+    keyframe a = p mod (n_kf - per_point + 1) and seen by keyframes a ..
+    a + per_point - 1 (M = per_point x n_pts rows, all valid), pixel noise
+    of 0.5 px x 1.2^level at levels 0-7, half the observations stereo, one
+    gross outlier (30 px) on 2 % of the points, the free poses off by ~0.3
+    deg and 1 cm and the points by 3 cm; keyframe 0 fixed. With
+    ``low_parallax`` (``tools/torch_gba_mesh_witness.py``), keyframes 5 cm
+    apart and the outliers on 2 % of all rows, so that some points have
+    two or more. Returns ``BAProblem``'s fields as arrays."""
+    rng = np.random.default_rng(seed)
+
+    def so3_exp(w):
+        th = np.linalg.norm(w, axis=-1)[..., None, None]
+        K = np.zeros(w.shape[:-1] + (3, 3))
+        K[..., 0, 1], K[..., 0, 2], K[..., 1, 2] = -w[..., 2], w[..., 1], -w[..., 0]
+        K = K - np.swapaxes(K, -1, -2)
+        th = np.maximum(th, 1e-12)
+        return (np.eye(3) + np.sin(th) / th * K
+                + (1 - np.cos(th)) / th ** 2 * K @ K)
+
+    k = np.arange(n_kf)
+    R_wc = so3_exp(np.stack([np.zeros(n_kf), 0.004 * k, np.zeros(n_kf)], 1))
+    c = np.stack([(0.05 if low_parallax else 0.2) * k,
+                  0.05 * np.sin(k / 10.0), np.zeros(n_kf)], 1)
+    T_cw = np.tile(np.eye(4), (n_kf, 1, 1))
+    T_cw[:, :3, :3] = np.swapaxes(R_wc, 1, 2)
+    T_cw[:, :3, 3] = -np.einsum("kji,kj->ki", R_wc, c)
+
+    a = np.arange(n_pts) % (n_kf - per_point + 1)
+    u = rng.uniform(20, cam.width - 20, n_pts)
+    v = rng.uniform(20, cam.height - 20, n_pts)
+    z = rng.uniform(2.0, 8.0, n_pts)
+    pc = np.stack([(u - cam.cx) / cam.fx * z, (v - cam.cy) / cam.fy * z, z], 1)
+    pw = np.einsum("pij,pj->pi", R_wc[a], pc) + c[a]
+
+    obs_pt = np.repeat(np.arange(n_pts), per_point)
+    obs_kf = a[obs_pt] + np.tile(np.arange(per_point), n_pts)
+    m = obs_pt.size
+    level = rng.integers(0, 8, m)
+    sigma = 0.5 * 1.2 ** level
+    pk = (np.einsum("mij,mj->mi", T_cw[obs_kf, :3, :3], pw[obs_pt])
+          + T_cw[obs_kf, :3, 3])
+    uu = cam.fx * pk[:, 0] / pk[:, 2] + cam.cx + rng.normal(0, sigma)
+    vv = cam.fy * pk[:, 1] / pk[:, 2] + cam.cy + rng.normal(0, sigma)
+    ur = np.where(rng.random(m) < 0.5,
+                  uu - cam.bf / pk[:, 2] + rng.normal(0, sigma), -1.0)
+    # one gross outlier on 2 % of the points: a point with two or more of
+    # its four rows off by 30 px loses every inlier and drifts off, by
+    # hundreds of metres and by rounding, in every solve
+    hit = np.flatnonzero(rng.random(n_pts) < 0.02)
+    bad = np.zeros(m, bool)
+    bad[per_point * hit + rng.integers(0, per_point, hit.size)] = True
+    if low_parallax:
+        bad = rng.random(m) < 0.02
+    uu = uu + bad * rng.normal(0, 30.0, m)
+    vv = vv + bad * rng.normal(0, 30.0, m)
+
+    init = T_cw.copy()
+    xi = np.concatenate([rng.normal(0, 0.005, (n_kf, 3)),
+                         rng.normal(0, 0.01, (n_kf, 3))], 1)
+    init[1:, :3, :3] = so3_exp(xi[1:, :3]) @ T_cw[1:, :3, :3]
+    init[1:, :3, 3] = (np.einsum("kij,kj->ki", so3_exp(xi[1:, :3]),
+                                 T_cw[1:, :3, 3]) + xi[1:, 3:])
+    return dict(
+        poses=init.astype(np.float32),
+        points=(pw + rng.normal(0, 0.03, pw.shape)).astype(np.float32),
+        obs_kf=obs_kf.astype(np.int32), obs_pt=obs_pt.astype(np.int32),
+        obs_uv=np.stack([uu, vv], 1).astype(np.float32),
+        obs_ur=ur.astype(np.float32),
+        obs_level=level.astype(np.int32),
+        obs_valid=np.ones(m, bool), fixed_mask=k == 0,
+        gt_poses=T_cw)
+
+
+def phase_multidevice(torch, dev, cfg, rgbs, depths, batch_ref,
+                      temporal_ref) -> None:
+    """Phase 17: ``dryrun_multichip``, the sharded batched front-end and the
+    observation-sharded global BA over a group of ``torch.cuda.device_count()``
+    processes, one a card, on NCCL, the counts zeroed before each path and
+    read after in its ranks. Holds the lanes to phase 16's ``batch_ref`` and
+    ``temporal_ref`` and the global BA to the unsharded solve on ``dev``
+    (``sharded_gba_vs_alone``); deterministic sums, so that they can be
+    equal."""
+    import math
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from sindslam_tpu_torch import convert
+    from sindslam_tpu_torch.frontend.flow_mask import n_grid_samples
+    from sindslam_tpu_torch.ops.homography import gumbel_draws
+    from sindslam_tpu_torch.parallel import batch_frontend as bf
+    from sindslam_tpu_torch.parallel import launch
+    from sindslam_tpu_torch.parallel.dryrun import dryrun_multichip
+    from sindslam_tpu_torch.slam import gba
+
+    n = launch.make_mesh(None, dev).world_size
+    backend = "NCCL" if dev.type == "cuda" else "gloo"
+    print(f"multi-device: world size {n} ({backend}, one process a device; "
+          f"torch.cuda.device_count() = {torch.cuda.device_count()})",
+          flush=True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t0 = time.perf_counter()
+        dry = dryrun_multichip(n, device=dev)
+        dry_s = time.perf_counter() - t0
+        if dev.type == "cuda":
+            for part in dry.values():
+                for name in MAIN_PATH:
+                    check(part["launches"][name] > 0,
+                          f"dryrun_multichip: kernel {name} never launched")
+
+        # phase 16's pairs and windows, cycled to a multiple of the ranks;
+        # lane b's draws are phase 16's lane b mod len(BATCH_PAIRS)
+        pairs = [BATCH_PAIRS[i % len(BATCH_PAIRS)]
+                 for i in range(math.lcm(len(BATCH_PAIRS), n))]
+        lanes = [TEMPORAL_LANES[i % len(TEMPORAL_LANES)]
+                 for i in range(math.lcm(len(TEMPORAL_LANES), n))]
+        n_s = n_grid_samples(cfg.camera.height, cfg.camera.width, cfg.dyna)
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(0)
+        draws = [gumbel_draws(cfg.dyna.ransac_iters, n_s, gen, "cpu")
+                 for _ in BATCH_PAIRS]
+        gumbel = torch.stack([draws[i % len(draws)] for i in range(len(pairs))])
+        rgb_b = torch.stack([rgbs[a] for a, _b in pairs])
+        prev_b = torch.stack([rgbs[b] for _a, b in pairs])
+        depth_b = torch.stack([depths[a] for a, _b in pairs])
+        rgb_t = torch.stack([torch.stack([rgbs[i] for i in ln]) for ln in lanes])
+        depth_t = torch.stack([torch.stack([depths[i] for i in ln])
+                               for ln in lanes])
+
+        tcfg = cfg.tracking
+        arrays = seeded_gba_problem(np, cfg.camera, tcfg.gba_max_keyframes,
+                                    tcfg.gba_max_points, GBA_PER_POINT,
+                                    GBA_SEED)
+        gt_poses = arrays.pop("gt_poses")
+        check(arrays["obs_kf"].shape[0] == tcfg.gba_max_obs,
+              f"global BA problem of {arrays['obs_kf'].shape[0]} rows, the "
+              f"cap is {tcfg.gba_max_obs}")
+        problem = convert.ba_problem_from_numpy(SimpleNamespace(**arrays),
+                                                device=dev)
+        iters, n_cg = tcfg.gba_iterations, tcfg.gba_cg_iters
+        gba.joint_global_ba(problem, cfg.camera, tcfg, 1, 1)    # warm-up
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        alone = gba.joint_global_ba(problem, cfg.camera, tcfg, iters, n_cg)
+        sync(torch, dev)
+        alone_ms = 1e3 * (time.perf_counter() - t0)
+
+        # each path twice in one group: the first call of a fresh process
+        # pays its warm-up; the second is timed and checked
+        step = (bf.step_on_mesh, (cfg, rgb_b, prev_b, depth_b, gumbel))
+        temporal = (bf.temporal_on_mesh, (cfg, rgb_t, depth_t))
+        t0 = time.perf_counter()
+        outs = launch.spawn(launch.measured, n, [
+            step, step, temporal, temporal,
+            (gba.joint_global_ba_on_mesh, (problem, cfg.camera, tcfg, 1, 1)),
+            (gba.joint_global_ba_on_mesh,
+             (problem, cfg.camera, tcfg, iters, n_cg))], device=dev)
+        group_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (step_out, step_counts, step_s), (temp_out, temp_counts, temp_s), \
+        ((res, replicas), _gba_counts, gba_s) = outs[1], outs[3], outs[5]
+
+    masks, labels, feats = step_out
+    for b in range(len(pairs)):
+        r = b % len(BATCH_PAIRS)
+        check(torch.equal(masks[b], batch_ref[0][r].cpu())
+              and torch.equal(labels[b], batch_ref[1][r].cpu())
+              and all(torch.equal(x[b], y[r].cpu())
+                      for x, y in zip(feats, batch_ref[2])),
+              f"sharded batch_frontend_step: lane {b} differs from phase "
+              f"16's lane {r}")
+    for b in range(len(lanes)):
+        r = b % len(TEMPORAL_LANES)
+        check(all(torch.equal(x[b], y[r].cpu())
+                  for x, y in zip(temp_out, temporal_ref)),
+              f"sharded batch_temporal_frontend: lane {b} differs from "
+              f"phase 16's lane {r}")
+    if dev.type == "cuda":
+        for name in MAIN_PATH:
+            check(step_counts[name] > 0 and temp_counts[name] > 0,
+                  f"kernel {name} never launched in the sharded front-end")
+
+    check(replicas.shape[0] == n and all(torch.equal(r, replicas[0])
+                                         for r in replicas),
+          "sharded global BA: the ranks ended with different poses, points "
+          "or mean chi2")
+    check(bool(torch.isfinite(res.packed).all()),
+          "sharded global BA: non-finite result")
+    if n == 1:
+        check(torch.equal(res.packed, alone.packed.cpu())
+              and torch.equal(res.obs_inlier, alone.obs_inlier.cpu()),
+              "sharded global BA on one rank is not the unsharded solve bit "
+              "for bit")
+    gap = sharded_gba_vs_alone(torch, problem, cfg.camera, tcfg, res, alone)
+    t_err = np.abs(res.poses.numpy()[:, :3, 3] - gt_poses[:, :3, 3]).max()
+    t_err0 = np.abs(arrays["poses"][:, :3, 3] - gt_poses[:, :3, 3]).max()
+    n_pairs = len(pairs)
+    print(f"multi-device ({n} rank(s), {backend}, deterministic sums): "
+          f"dryrun_multichip {dry_s:.1f} s (0.25 scale: rank 0 "
+          f"{dry['small']['seconds']:.2f} s, 640x480: "
+          f"{dry['full']['seconds']:.2f} s); one group for the three paths, "
+          f"each run twice, {group_s:.1f} s of host time, spawn included; "
+          f"second calls: sharded "
+          f"batch_frontend_step on {n_pairs} pairs "
+          f"{1e3 * step_s / (n_pairs / n):.1f} ms a pair a rank, each lane "
+          f"equal to phase 16's, K1-K4 launches of rank 0 {step_counts}; "
+          f"sharded batch_temporal_frontend on {len(lanes)} lanes x "
+          f"{len(lanes[0])} frames {1e3 * temp_s / (len(lanes) // n * len(lanes[0])):.1f} "
+          f"ms a frame a rank, each lane equal to phase 16's, launches "
+          f"{temp_counts}", flush=True)
+    print(f"global BA at the caps (K {tcfg.gba_max_keyframes}, P "
+          f"{tcfg.gba_max_points}, M {tcfg.gba_max_obs}, {iters} x {n_cg}, "
+          f"seed {GBA_SEED}): unsharded {alone_ms:.1f} ms, sharded over {n} "
+          f"rank(s) {1e3 * gba_s:.1f} ms (rank 0, host clock between "
+          f"synchronisations); {'bit for bit equal' if n == 1 else 'within'} "
+          f"the unsharded solve (poses {gap['pose_gap']:.3g}, mean chi2 "
+          f"{gap['chi2_gap']:.3g}, inliers differing in {gap['n_flips']} "
+          f"rows, {gap['n_flips_far']} away from their threshold; the "
+          f"{gap['n_determined']} determined points {gap['point_gap']:.3g} m "
+          f"at most, {gap['point_mean_gap']:.3g} on average; every point "
+          f"with information {gap['sigma_gap']:.3g} of its deviations at "
+          f"most; the {gap['n_weak']} weak ones {gap['weak_gap']:.3g} m, "
+          f"held in deviations only; the {gap['n_uninformed']} with no "
+          f"inlier, not held, {gap['uninformed_gap']:.3g} m), every rank's "
+          f"result "
+          f"equal; mean chi2 {float(res.mean_chi2):.4f}, inliers "
+          f"{int(res.obs_inlier.sum())} of {tcfg.gba_max_obs}; translations "
+          f"at most {t_err:.4f} m from the truth ({t_err0:.4f} m before: the "
+          f"optimum of the noisy chain drifts along it)", flush=True)
 
 
 def phase_card_cpu(torch, dev, cfg, frames) -> None:
@@ -2504,8 +2856,10 @@ def main() -> int:
     lap("phase 14, monocular SLAM")
     phase_stereo(torch, dev)
     lap("phase 15, stereo SLAM")
-    phase_batch(torch, dev, cfg, rgbs, depths)
+    batch_ref, temporal_ref = phase_batch(torch, dev, cfg, rgbs, depths)
     lap("phase 16, the batched front-end")
+    phase_multidevice(torch, dev, cfg, rgbs, depths, batch_ref, temporal_ref)
+    lap("phase 17, the multi-device paths")
 
     def entry(name):
         r = results[name]

@@ -1,5 +1,6 @@
-"""Batched front-end over many frame pairs or frame windows on one GPU,
-PyTorch port of ``sindslam_tpu/parallel/batch_frontend.py``.
+"""Batched front-end over many frame pairs or frame windows, on one device
+or sharded over a mesh of devices, PyTorch port of
+``sindslam_tpu/parallel/batch_frontend.py``.
 
 The reference's only parallelism is 4 CPU threads + OpenMP rows + ROS
 pub/sub; the natural scaling axis is the frame stream: dynamic-mask
@@ -7,20 +8,26 @@ computation for frame pairs is embarrassingly parallel (the temporal state
 is an accuracy warm-start, not a correctness dependency), which serves bulk
 mask precompute, multi-camera rigs and multi-sequence evaluation.
 
-The JAX package shards the batch over a device mesh (``make_mesh``); the
-port targets one H100, so there is no mesh: a batch is a leading dimension
-on one device. The CUDA kernel wrappers take one 2-D image each, so the
-lanes run one after another on the device's stream.
+The JAX package shards the batch over a device mesh (``make_mesh``, here
+from ``parallel/launch.py``); given a ``mesh`` under ``launch.spawn``, rank
+r runs lanes ``mesh.shard(B)`` and every rank gets all B lanes' outputs
+(one all-gather each). Within a device the CUDA kernel wrappers take one
+2-D image each, so its lanes run one after another on its stream.
 
-- ``batch_frontend_step(cfg, device=None)`` builds the stateless batched
-  step: flow + cold k-means + edges + RAG merge + residual mask (weight map
-  of ones) + fusion (no persistence) + masked ORB for B frame pairs. Each
-  lane's RANSAC draws come from an explicit ``torch.Generator`` or are
-  passed in (tests pass the reference's ``jax.random`` draws).
-- ``batch_temporal_frontend(cfg, device=None)`` builds the stateful one:
-  each lane runs the real ``frontend_step`` (temporal flow-pyramid cache,
-  large-motion fallback, k-means warm start, persistence) over its own
-  window, from ``init_state(seed=0)`` like every JAX lane's ``PRNGKey(0)``.
+- ``batch_frontend_step(cfg, device=None, mesh=None)`` builds the stateless
+  batched step: flow + cold k-means + edges + RAG merge + residual mask
+  (weight map of ones) + fusion (no persistence) + masked ORB for B frame
+  pairs. Lane b's RANSAC draws are ``gumbel[b]`` (tests pass the
+  reference's ``jax.random`` draws) or the b-th of B draws made from one
+  ``torch.Generator`` before any lane runs: a lane's result does not depend
+  on the number of devices.
+- ``batch_temporal_frontend(cfg, device=None, mesh=None)`` builds the
+  stateful one: each lane runs the real ``frontend_step`` (temporal
+  flow-pyramid cache, large-motion fallback, k-means warm start,
+  persistence) over its own window, from ``init_state(seed=0)`` like every
+  JAX lane's ``PRNGKey(0)``.
+- ``step_on_mesh`` and ``temporal_on_mesh`` are the two as rank functions
+  for ``launch.spawn``.
 """
 
 from __future__ import annotations
@@ -41,6 +48,9 @@ from sindslam_tpu_torch.frontend.rag_merge import rag_merge
 from sindslam_tpu_torch.ops import flow as flow_ops
 from sindslam_tpu_torch.ops import image as im
 from sindslam_tpu_torch.ops.homography import gumbel_draws
+# make_mesh is here too, where the JAX package has its counterpart
+from sindslam_tpu_torch.parallel.launch import (Mesh, all_gather_lanes,
+                                                make_mesh)  # noqa: F401
 
 
 def single_pair(rgb: torch.Tensor, rgb_prev: torch.Tensor,
@@ -76,16 +86,22 @@ def _stack_features(feats) -> OrbFeatures:
     return OrbFeatures(*(torch.stack(f) for f in zip(*feats)))
 
 
-def batch_frontend_step(cfg: SystemConfig, device=None) -> Callable:
+def _own(mesh: Optional[Mesh], n_lanes: int) -> slice:
+    """The lanes this process runs: all of them with no mesh."""
+    return slice(0, n_lanes) if mesh is None else mesh.shard(n_lanes)
+
+
+def batch_frontend_step(cfg: SystemConfig, device=None,
+                        mesh: Optional[Mesh] = None) -> Callable:
     """The batched stateless step on ``device`` (CUDA unless it says
-    otherwise).
+    otherwise), or on this rank's device of ``mesh``.
 
     Returns ``step(rgbs (B, H, W, 3) uint8, rgbs_prev, depths (B, H, W),
     generator=None, gumbel=None) -> (masks (B, H, W) int32, labels (B, H, W)
     int32, features stacked (B, N, ...))``. Lane b's (ransac_iters, N)
-    Gumbel draws are ``gumbel[b]`` when given, else drawn from
-    ``generator`` lane by lane."""
-    dev = resolve_device(device)
+    Gumbel draws are ``gumbel[b]`` when given, else the b-th of B draws from
+    ``generator``. With a mesh, B must divide over its devices."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     h, w = cfg.camera.height, cfg.camera.width
     n_s = n_grid_samples(h, w, cfg.dyna)
 
@@ -95,45 +111,73 @@ def batch_frontend_step(cfg: SystemConfig, device=None) -> Callable:
         if gumbel is None and generator is None:
             raise ValueError("batch_frontend_step: pass a generator or the "
                              "lanes' Gumbel draws")
-        rgbs, rgbs_prev = rgbs.to(dev), rgbs_prev.to(dev)
-        depths = depths.to(dev, torch.float32)
-        outs = []
-        for b in range(rgbs.shape[0]):
-            g = gumbel[b].to(dev) if gumbel is not None else gumbel_draws(
-                cfg.dyna.ransac_iters, n_s, generator, dev)
-            outs.append(single_pair(rgbs[b], rgbs_prev[b], depths[b], g, cfg))
+        own = _own(mesh, rgbs.shape[0])
+        if gumbel is None:
+            gumbel = torch.stack([
+                gumbel_draws(cfg.dyna.ransac_iters, n_s, generator,
+                             generator.device) for _ in range(rgbs.shape[0])])
+        rgbs, rgbs_prev = rgbs[own].to(dev), rgbs_prev[own].to(dev)
+        depths = depths[own].to(dev, torch.float32)
+        outs = [single_pair(rgbs[i], rgbs_prev[i], depths[i], g.to(dev), cfg)
+                for i, g in enumerate(gumbel[own])]
         masks, labels, feats = zip(*outs)
-        return torch.stack(masks), torch.stack(labels), _stack_features(feats)
+        masks, labels = torch.stack(masks), torch.stack(labels)
+        feats = _stack_features(feats)
+        return (all_gather_lanes(masks, mesh), all_gather_lanes(labels, mesh),
+                OrbFeatures(*(all_gather_lanes(f, mesh) for f in feats)))
 
     return step
 
 
-def batch_temporal_frontend(cfg: SystemConfig, device=None) -> Callable:
+def batch_temporal_frontend(cfg: SystemConfig, device=None,
+                            mesh: Optional[Mesh] = None) -> Callable:
     """The batched stateful front-end on ``device`` (CUDA unless it says
-    otherwise): each lane scans ``frontend_step`` over its own window.
+    otherwise), or on this rank's device of ``mesh``: each lane scans
+    ``frontend_step`` over its own window.
 
     Returns ``run(rgbs (B, T, H, W, 3) uint8, depths (B, T, H, W) f32) ->
-    (masks (B, T, H, W) int32, large_motion (B, T) bool, n_feats (B, T)
-    int32)``."""
+    (masks (B, T, H, W) int32, large_motion (B, T) bool on the CPU,
+    n_feats (B, T) int32)``. With a mesh, B must divide over its
+    devices."""
     from sindslam_tpu_torch.frontend.pipeline import frontend_step, init_state
 
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
 
     def run(rgbs, depths):
-        rgbs = rgbs.to(dev)
-        depths = depths.to(dev, torch.float32)
+        B, T = rgbs.shape[:2]
+        own = _own(mesh, B)
+        rgbs = rgbs[own].to(dev)
+        depths = depths[own].to(dev, torch.float32)
         masks, large, n_feats = [], [], []
         for b in range(rgbs.shape[0]):
             state = init_state(cfg, im.rgb_to_gray(rgbs[b, 0]), device=dev)
-            for t in range(rgbs.shape[1]):
+            for t in range(T):
                 out, state = frontend_step(rgbs[b, t], depths[b, t], state,
                                            cfg)
                 masks.append(out.dyna_mask)
                 large.append(out.large_motion)
                 n_feats.append(out.features.valid.sum().to(torch.int32))
-        B, T = rgbs.shape[:2]
-        return (torch.stack(masks).reshape(B, T, *masks[0].shape),
-                torch.tensor(large, dtype=torch.bool).reshape(B, T),
-                torch.stack(n_feats).reshape(B, T))
+        n = rgbs.shape[0]
+        large = torch.tensor(large, dtype=torch.bool).reshape(n, T)
+        if mesh is not None:
+            large = all_gather_lanes(large.to(dev), mesh).cpu()
+        return (all_gather_lanes(
+                    torch.stack(masks).reshape(n, T, *masks[0].shape), mesh),
+                large,
+                all_gather_lanes(torch.stack(n_feats).reshape(n, T), mesh))
 
     return run
+
+
+def step_on_mesh(mesh: Mesh, cfg: SystemConfig, rgbs, rgbs_prev, depths,
+                 gumbel):
+    """Rank function for ``launch.spawn``: ``batch_frontend_step`` sharded
+    over ``mesh`` on B pairs with the lanes' draws ``gumbel``."""
+    return batch_frontend_step(cfg, mesh=mesh)(rgbs, rgbs_prev, depths,
+                                               gumbel=gumbel)
+
+
+def temporal_on_mesh(mesh: Mesh, cfg: SystemConfig, rgbs, depths):
+    """Rank function for ``launch.spawn``: ``batch_temporal_frontend``
+    sharded over ``mesh`` on B windows."""
+    return batch_temporal_frontend(cfg, mesh=mesh)(rgbs, depths)

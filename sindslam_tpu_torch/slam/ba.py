@@ -159,16 +159,22 @@ def _chi2_eval(problem: BAProblem, cam: CameraConfig, inv_sigma2):
     return chi2, z_ok
 
 
-def _robust_cost(chi2, z_ok, active, delta):
+def _no_reduce(x: torch.Tensor) -> torch.Tensor:
+    """The ``reduce`` hook of a process that holds every observation."""
+    return x
+
+
+def _robust_cost(chi2, z_ok, active, delta, reduce=_no_reduce):
     """Total Huber cost over active rows; behind-camera rows cost as if at
     the Huber cap with a large residual (keeps the LM merit function
-    monotone-meaningful)."""
+    monotone-meaningful). ``reduce`` sums each partial sum over the ranks
+    that hold the other rows."""
     sqrt_chi = torch.sqrt(chi2 + 1e-12)
     rho = torch.where(sqrt_chi <= delta, chi2,
                       2.0 * delta * sqrt_chi - delta * delta)
     bad = active & ~z_ok
-    return (torch.sum(torch.where(active & z_ok, rho, 0.0))
-            + 1e4 * torch.sum(bad.to(torch.float32)))
+    return (reduce(torch.sum(torch.where(active & z_ok, rho, 0.0)))
+            + 1e4 * reduce(torch.sum(bad.to(torch.float32))))
 
 
 def _huber_delta(obs_ur: torch.Tensor, cfg: TrackingConfig) -> torch.Tensor:
@@ -213,14 +219,16 @@ def _prior_residual(poses: torch.Tensor, prior_poses: torch.Tensor
 
 
 def _update(problem: BAProblem, dx_c: torch.Tensor, dx_p: torch.Tensor,
-            active: torch.Tensor) -> BAProblem:
+            active: torch.Tensor, reduce=_no_reduce) -> BAProblem:
     """Apply a pose step (left-multiplicative, fixed poses held) and a point
-    step (only to points with an active observation)."""
+    step (only to points with an active observation; ``reduce`` sums the
+    counts over the ranks that hold the other observations)."""
     P = problem.points.shape[0]
     new_poses = se3.se3_exp(dx_c) @ problem.poses
     new_poses = torch.where(problem.fixed_mask[:, None, None], problem.poses,
                             new_poses)
-    pt_seen = _segment_sum(active.to(torch.float32), problem.obs_pt, P) > 0
+    pt_seen = reduce(_segment_sum(active.to(torch.float32), problem.obs_pt,
+                                  P)) > 0
     new_points = torch.where(pt_seen[:, None], problem.points + dx_p,
                              problem.points)
     return problem._replace(poses=new_poses, points=new_points)
@@ -297,7 +305,10 @@ def _lm_run(problem: BAProblem, cam, inv_sigma2, active, n_iters: int,
     """``n_iters`` Levenberg-Marquardt iterations with monotone
     accept/reject: ``step(problem, lam) -> candidate`` and ``total_cost(
     problem, chi2, z_ok) -> cost``. ``ok``, ``lam`` and ``cost`` stay device
-    tensors: no host synchronisation."""
+    tensors: no host synchronisation. Where ranks hold parts of the
+    observations, ``total_cost`` returns the cost summed over all of them
+    (the same bits on every rank), so that ``ok`` is one decision and the
+    replicated poses do not part between ranks."""
     chi2_0, z_ok0 = _chi2_eval(problem, cam, inv_sigma2)
     cost = total_cost(problem, chi2_0, z_ok0)
     # g2o's Levenberg initializes lambda = tau * max(diag H) with tau=1e-5;
@@ -319,11 +330,14 @@ def _lm_run(problem: BAProblem, cam, inv_sigma2, active, n_iters: int,
     return problem, chi2
 
 
-def _finish(problem: BAProblem, chi2, active, cfg: TrackingConfig) -> BAResult:
+def _finish(problem: BAProblem, chi2, active, cfg: TrackingConfig,
+            reduce=_no_reduce) -> BAResult:
+    """The result, ``mean_chi2`` over the inliers (``reduce`` sums its
+    numerator and count over the ranks that hold the other rows)."""
     thresh = torch.where(problem.obs_ur >= 0, cfg.chi2_stereo, cfg.chi2_mono)
     inliers = active & (chi2 <= thresh)
-    mean_chi2 = torch.sum(torch.where(inliers, chi2, 0.0)) / \
-        torch.clamp(torch.sum(inliers), min=1)
+    mean_chi2 = reduce(torch.sum(torch.where(inliers, chi2, 0.0))) / \
+        torch.clamp(reduce(torch.sum(inliers)), min=1)
     packed = torch.cat([
         problem.poses.reshape(-1), problem.points.reshape(-1),
         mean_chi2.reshape(1)]).to(torch.float32)

@@ -24,13 +24,28 @@ solvers.
 
 Every step divides only by guarded values and both loops are Python loops
 over device tensors: the whole solve makes no host synchronisation.
+
+Sharded over a mesh (``mesh=``, under ``parallel/launch.py::spawn``), each
+rank holds ``mesh.shard(M)`` rows of the observation table
+(``shard_ba_problem``) and the poses and points whole; every sum
+over observations is all-reduced where the JAX package's GSPMD inserts its
+all-reduces (the H/b blocks, W and W^T in every CG iteration, g, the
+preconditioner's diagonal, the back-substitution, the points seen, the LM
+costs, the mean chi2), so ``_update`` and every accept decision run on the
+same bits on every rank. No path of the system selects it yet: SLAM and
+loop closing run the solve unsharded.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import Optional
+
 import torch
 
 from sindslam_tpu_torch.config import CameraConfig, TrackingConfig
+from sindslam_tpu_torch.parallel.launch import (Mesh, all_gather_lanes,
+                                                all_reduce_sum)
 from sindslam_tpu_torch.slam.ba import (BAProblem, BAResult, _finish,
                                         _huber_delta, _inv3x3, _inv_sigma2,
                                         _lm_run, _perobs_blocks,
@@ -61,9 +76,11 @@ def _bmv(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def _lm_step(problem: BAProblem, cam, cfg: TrackingConfig, inv_sigma2,
-             active, use_huber: bool, lam, n_cg: int) -> BAProblem:
+             active, use_huber: bool, lam, n_cg: int, reduce) -> BAProblem:
     """One LM candidate step: build blocks, PCG-solve the reduced camera
-    system, back-substitute points. Returns the candidate problem."""
+    system, back-substitute points. Returns the candidate problem.
+    ``reduce`` sums a tensor over the ranks that hold the other
+    observations."""
     K = problem.poses.shape[0]
     P = problem.points.shape[0]
     dev = problem.poses.device
@@ -72,10 +89,10 @@ def _lm_step(problem: BAProblem, cam, cfg: TrackingConfig, inv_sigma2,
     Hcc_o, Hpp_o, Hcp_o, bc_o, bp_o, _ = _perobs_blocks(
         problem, cam, cfg, inv_sigma2, active, use_huber)
 
-    Hcc = _segment_sum(Hcc_o, obs_kf, K)                        # (K,6,6)
-    bc = _segment_sum(bc_o, obs_kf, K)                          # (K,6)
-    Hpp = _segment_sum(Hpp_o, obs_pt, P)                          # (P,3,3)
-    bp = _segment_sum(bp_o, obs_pt, P)                            # (P,3)
+    Hcc = reduce(_segment_sum(Hcc_o, obs_kf, K))                # (K,6,6)
+    bc = reduce(_segment_sum(bc_o, obs_kf, K))                  # (K,6)
+    Hpp = reduce(_segment_sum(Hpp_o, obs_pt, P))                  # (P,3,3)
+    bp = reduce(_segment_sum(bp_o, obs_pt, P))                    # (P,3)
 
     # Marquardt damping on the full-H diagonal BEFORE the Schur reduction
     # (g2o damps H, not S) + absolute floors for zero-observation padding
@@ -92,11 +109,11 @@ def _lm_step(problem: BAProblem, cam, cfg: TrackingConfig, inv_sigma2,
 
     def Wt_apply(xc):
         """W^T x: (K,6) -> (P,3) via one pass over observations."""
-        return _segment_sum(_bmv(Hcp_t, xc[obs_kf]), obs_pt, P)
+        return reduce(_segment_sum(_bmv(Hcp_t, xc[obs_kf]), obs_pt, P))
 
     def W_apply(vp):
         """W v: (P,3) -> (K,6) via one pass over observations."""
-        return _segment_sum(_bmv(Hcp_o, vp[obs_pt]), obs_kf, K)
+        return reduce(_segment_sum(_bmv(Hcp_o, vp[obs_pt]), obs_kf, K))
 
     def S_apply(xc):
         """S x = (Hcc_d - W Hpp_d^-1 W^T) x, fixed poses clamped to 0."""
@@ -114,7 +131,7 @@ def _lm_step(problem: BAProblem, cam, cfg: TrackingConfig, inv_sigma2,
     # per-observation block
     t1 = Hcp_o @ Hpp_inv[obs_pt]                                  # (M,6,3)
     term = t1 @ Hcp_t                                             # (M,6,6)
-    Sdiag = Hcc_d - _segment_sum(term, obs_kf, K)
+    Sdiag = Hcc_d - reduce(_segment_sum(term, obs_kf, K))
     Sdiag = torch.where(free[:, None, None], Sdiag, eye6) + 1e-6 * eye6
     Minv = _inv6x6_spd(Sdiag)                                     # (K,6,6)
 
@@ -143,12 +160,13 @@ def _lm_step(problem: BAProblem, cam, cfg: TrackingConfig, inv_sigma2,
     # back-substitute points: dx_p = -Hpp^-1 (bp + W^T dx_c)
     dx_p = -_bmv(Hpp_inv, bp + Wt_apply(dx_c))
     dx_p = torch.where(torch.isfinite(dx_p), dx_p, 0.0)
-    return _update(problem, dx_c, dx_p, active)
+    return _update(problem, dx_c, dx_p, active, reduce)
 
 
 def joint_global_ba(problem: BAProblem, cam: CameraConfig,
                     cfg: TrackingConfig, n_iters: int = 20,
-                    n_cg: int = 100) -> BAResult:
+                    n_cg: int = 100, mesh: Optional[Mesh] = None
+                    ) -> BAResult:
     """Joint robust LM over the whole map (parity: Optimizer.cc:41 — the
     reference's GlobalBundleAdjustemnt runs ``nIterations`` Huber-robust
     iterations with NO mid-solve outlier trim, unlike LocalBA's two-stage:
@@ -156,17 +174,50 @@ def joint_global_ba(problem: BAProblem, cam: CameraConfig,
     residuals, and a trim would remove exactly the constraints the global
     solve exists to enforce). Outliers are classified once at the end, for
     reporting only. Runs on the device of ``problem`` with no host
-    synchronisation."""
+    synchronisation.
+
+    With a ``mesh`` of more than one device, ``problem`` holds this rank's
+    rows of the observation table (``shard_ba_problem``) and the result's
+    ``obs_inlier`` all M rows; on a mesh of one device the solve is the one
+    without a mesh, bit for bit (``all_reduce_sum`` is then the
+    identity)."""
+    reduce = functools.partial(all_reduce_sum, mesh=mesh)
     inv_sigma2 = _inv_sigma2(problem)
     active = problem.obs_valid
     delta = _huber_delta(problem.obs_ur, cfg)
 
     def total_cost(_prob, chi2, z_ok):
-        return _robust_cost(chi2, z_ok, active, delta)
+        return _robust_cost(chi2, z_ok, active, delta, reduce)
 
     def step(prob, lam):
-        return _lm_step(prob, cam, cfg, inv_sigma2, active, True, lam, n_cg)
+        return _lm_step(prob, cam, cfg, inv_sigma2, active, True, lam, n_cg,
+                        reduce)
 
     problem, chi2 = _lm_run(problem, cam, inv_sigma2, active, n_iters, step,
                             total_cost)
-    return _finish(problem, chi2, active, cfg)
+    res = _finish(problem, chi2, active, cfg, reduce)
+    return res._replace(obs_inlier=all_gather_lanes(res.obs_inlier, mesh))
+
+
+def shard_ba_problem(p: BAProblem, mesh: Mesh) -> BAProblem:
+    """This rank's rows ``mesh.shard(M)`` of ``p``'s observation table, with
+    the poses, points and ``fixed_mask`` whole, all on the rank's device:
+    the problem ``joint_global_ba(..., mesh=mesh)`` takes. Raises when the M
+    rows do not divide over the mesh (the capacities of ``LocalMap`` are
+    powers of two of at least 4,096)."""
+    rows = mesh.shard(p.obs_kf.shape[0])
+    return BAProblem(*(
+        (x[rows] if name.startswith("obs_") else x).to(mesh.device)
+        for name, x in zip(BAProblem._fields, p)))
+
+
+def joint_global_ba_on_mesh(mesh: Mesh, problem: BAProblem, cam: CameraConfig,
+                            cfg: TrackingConfig, n_iters: int = 20,
+                            n_cg: int = 100):
+    """Rank function for ``launch.spawn``: ``joint_global_ba`` of the whole
+    ``problem`` sharded over ``mesh`` by observation rows. Returns (result,
+    replicas): ``replicas`` (n, L) holds every rank's ``result.packed``, the
+    poses, points and mean chi2 each rank ended with."""
+    res = joint_global_ba(shard_ba_problem(problem, mesh), cam, cfg,
+                          n_iters=n_iters, n_cg=n_cg, mesh=mesh)
+    return res, all_gather_lanes(res.packed[None], mesh)

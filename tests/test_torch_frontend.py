@@ -120,6 +120,7 @@ def _port_sources():
     yield os.path.join(ROOT, "tools", "torch_probe_sor_inner.py")
     yield os.path.join(ROOT, "tools", "torch_probe_pose_solve.py")
     yield os.path.join(ROOT, "tools", "torch_probe_ba.py")
+    yield os.path.join(ROOT, "tools", "torch_probe_multidevice.py")
     yield os.path.join(ROOT, "tools", "torch_probe_sum_order.py")
     yield os.path.join(ROOT, "tools", "torch_probe_card_cpu.py")
 
@@ -138,7 +139,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "slam/system.py", "geometry/sim3.py", "slam/pose_graph.py",
                 "runtime/native.py", "mapping/dense.py", "slam/initializer.py",
                 "slam/mono.py", "slam/stereo.py", "parallel/batch_frontend.py",
-                "viz/ar.py", "viz/viewer.py"):
+                "viz/ar.py", "viz/viewer.py", "parallel/launch.py",
+                "parallel/dryrun.py"):
         assert os.path.join("sindslam_tpu_torch", *sub.split("/")) in scanned
     for path in _port_sources():
         with open(path) as f:
