@@ -130,7 +130,14 @@
    deviations), and every rank's poses, points and mean chi2 equal;
    prints both global BA times. No multi-card figure comes from a
    one-card machine;
-18. prints a ``{"kernels_off_main_path": [...]}`` line for the standalone
+18. runs ``bench_torch.main()`` in this process as a user runs the port's
+   benchmark, with ``BENCH_SKIP_LOOP=1``, ``BENCH_SKIP_ACCURACY=1`` (phases
+   11 and 12 drive those pairs) and ``BENCH_FRAMES=10``, the launch
+   counters zeroed before and read after; prints its fps line and fails
+   unless it returns 0 with that line last, keyed as ``bench.py``'s fps
+   line, fps above 0 and both fallback rates in [0, 1], and unless K3 and
+   the fused K4 launched once a frame it ran, K2 twice and K1 at all;
+19. prints a ``{"kernels_off_main_path": [...]}`` line for the standalone
    patch gather (the main path reaches its loader only through the fused
    BRIEF kernel, so its launch count there is 0), a ``{"kernels": [...]}``
    line for the kernels the main path launches, then as its last line
@@ -248,6 +255,8 @@ TEMPORAL_LANES = ((0, 1, 2, 3), (4, 5, 6, 7))
 GBA_SEED, GBA_PER_POINT = 0, 4
 MESH_POSE_TOL, MESH_POINT_TOL, MESH_CHI2_TOL = 5e-4, 5e-3, 0.05
 MESH_DETERMINED_M = 1.0
+# Phase 18: bench_torch.py's fps line over this many measured frames
+BENCH_FRAMES = 10
 
 
 def check(cond: bool, what: str) -> None:
@@ -1903,6 +1912,65 @@ def phase_card_cpu(torch, dev, cfg, frames) -> None:
               f"bit for bit: CPU {w['CPU']}, card {w['card']}")
 
 
+def bench_py_fps_keys() -> list:
+    """The keys of ``bench.py``'s fps line (its last dict literal with a
+    "metric" key), read with ``ast``: ``bench.py`` drives the JAX package."""
+    import ast
+
+    path = os.path.join(ROOT, "bench.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    lines = sorted((node.lineno, [k.value for k in node.keys])
+                   for node in ast.walk(tree) if isinstance(node, ast.Dict)
+                   and any(isinstance(k, ast.Constant) and k.value == "metric"
+                           for k in node.keys))
+    return lines[-1][1]
+
+
+def phase_bench(torch, ck) -> None:
+    """``bench_torch.main()`` with the companion lines skipped; its stdout
+    is captured, and its fps line printed here."""
+    import contextlib
+    import io
+    from unittest import mock
+
+    import bench_torch
+
+    env = {"BENCH_SKIP_LOOP": "1", "BENCH_SKIP_ACCURACY": "1",
+           "BENCH_FRAMES": str(BENCH_FRAMES)}
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, env), contextlib.redirect_stdout(out):
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        rc = bench_torch.main()
+        counts = dict(ck.LAUNCHES)
+    seconds = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    check(rc == 0, f"bench_torch.main() returned {rc}")
+    check(len(lines) == 1, f"bench_torch printed {len(lines)} stdout lines, "
+          "not the fps line alone")
+    line = json.loads(lines[-1])
+    print(f"bench_torch fps line: {json.dumps(line)}", flush=True)
+    keys = bench_py_fps_keys()
+    check(list(line) == keys,
+          f"bench_torch's fps line keys {list(line)} are not bench.py's {keys}")
+    check(line["value"] > 0, f"bench_torch: fps {line['value']}")
+    for key in ("large_motion_fallback_rate", "fallback_rate_fast_segment"):
+        check(0.0 <= line[key] <= 1.0, f"bench_torch: {key} {line[key]}")
+    n, warm = BENCH_FRAMES, bench_torch.N_WARM
+    # walking and fast segments (warm-up, measured, latency frames), then
+    # the fallback-off run
+    frames = 2 * (warm + n + min(n, 20)) + warm + min(n, 15)
+    print(f"bench_torch: {frames} frontend_step calls in {seconds:.1f} s, "
+          f"K1-K4 launches {counts}", flush=True)
+    for name, want in (("fast_nms", frames), ("brief_from_patches", frames),
+                       ("cc_labels", 2 * frames)):
+        check(counts[name] == want,
+              f"bench_torch: {name} launched {counts[name]} times, not {want}")
+    check(counts["sor_inner"] > 0, "bench_torch: sor_inner never launched")
+
+
 def sync(torch, dev) -> None:
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize()
@@ -2860,6 +2928,8 @@ def main() -> int:
     lap("phase 16, the batched front-end")
     phase_multidevice(torch, dev, cfg, rgbs, depths, batch_ref, temporal_ref)
     lap("phase 17, the multi-device paths")
+    phase_bench(torch, ck)
+    lap("phase 18, bench_torch on the card")
 
     def entry(name):
         r = results[name]

@@ -22,6 +22,16 @@ __version__ = "0.1.0"
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from sindslam_tpu_torch.config import (  # noqa: E402,F401
+    CameraConfig,
+    DynaConfig,
+    FlowConfig,
+    MappingConfig,
+    ORBConfig,
+    SystemConfig,
+    TrackingConfig,
+)
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless ``device`` says

@@ -62,6 +62,10 @@ class OrbFeatures(NamedTuple):
     desc: torch.Tensor      # (N, 8) int32 words of the 256-bit descriptors
     valid: torch.Tensor     # (N,) bool
 
+    @property
+    def capacity(self) -> int:
+        return int(self.xy.shape[0])
+
 
 def level_shapes(h: int, w: int, n_levels: int, scale: float
                  ) -> List[Tuple[int, int]]:

@@ -1,0 +1,1 @@
+from sindslam_tpu_torch.geometry import camera, se3  # noqa: F401

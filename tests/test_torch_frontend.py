@@ -16,6 +16,9 @@ of 256 bits and the median by 10 (measured 5.8 and 5 on this input).
 import ast
 import dataclasses
 import os
+import subprocess
+import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -114,6 +117,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "bench_torch.py")
     for name in ("rgbd_odometry", "mono_odometry", "stereo_odometry",
                  "ar_demo", "associate", "evaluate_ate", "evaluate_rpe"):
         yield os.path.join(ROOT, "examples", f"{name}_torch.py")
@@ -157,6 +161,31 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 if top in ("jax", "jaxlib", "sindslam_tpu"):
                     bad.append(f"{os.path.relpath(path, ROOT)}:{node.lineno} {n}")
     assert not bad, bad
+
+
+def test_package_names_import_alone_on_the_cpu():
+    """The JAX package's package-level names, in a fresh interpreter: no
+    JAX, no CUDA initialised, nothing built."""
+    code = (
+        "import os, sys\n"
+        "from sindslam_tpu_torch import SystemConfig, TrackingConfig\n"
+        "from sindslam_tpu_torch.datasets import load_tum_sequence, associate\n"
+        "from sindslam_tpu_torch.geometry import camera, se3\n"
+        "import torch\n"
+        "from sindslam_tpu_torch.frontend.orb import OrbFeatures\n"
+        "z = torch.zeros\n"
+        "f = OrbFeatures(z(7, 2), z(7), z(7), z(7), z(7, 8), z(7).bool())\n"
+        "assert f.capacity == 7 and type(f.capacity) is int\n"
+        "assert camera.__name__ == 'sindslam_tpu_torch.geometry.camera'\n"
+        "assert se3.__name__ == 'sindslam_tpu_torch.geometry.se3'\n"
+        "assert 'jax' not in sys.modules and 'sindslam_tpu' not in sys.modules\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert not os.listdir(os.environ['SINDSLAM_TORCH_BUILD_DIR'])\n")
+    with tempfile.TemporaryDirectory() as build:
+        env = dict(os.environ, PYTHONPATH=ROOT, SINDSLAM_TORCH_BUILD_DIR=build)
+        r = subprocess.run([sys.executable, "-c", code], cwd=build, env=env,
+                           capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
 
 
 def test_reference_tools_import_jax_only_where_they_run_it():
