@@ -102,7 +102,13 @@
    ``tests/test_mono.py``'s limits (initialised by frame 6, not lost, more
    than 100 map points, scale-aligned ATE under 0.12 m); holds the run's
    first ``initialize_monocular`` input, a seeded ``ransac_sim3`` problem
-   and a seeded Sim(3) pose graph on the card against the CPU;
+   and a seeded Sim(3) pose graph on the card against the CPU; then runs
+   frames 0-24 of ``mono_loop_closure_pair``'s orbit on the card (launch
+   counts zeroed before, read after) and on the CPU with the same draws,
+   and holds each step on the card from the CPU's state to the CPU's step
+   (flags, map points, the pose within 1e-4 of the map's unit; the free
+   runs part by float32 rounding and are printed), under deterministic
+   sums;
 15. zeroes the launch counters and runs ``StereoSystem`` over 10 rendered
    pairs (seed 7) with ``tests/test_stereo.py``'s limits (metric ATE under
    0.08 m, stereo depth against the render); holds ``stereo_match`` of one
@@ -233,6 +239,15 @@ MONO_FRAMES, MONO_SEED, MONO_AMPLITUDE = 12, 4, 0.25
 MONO_INIT_BY, MONO_MIN_POINTS, MONO_ATE_M = 6, 100, 0.12
 JAX_MONO = dict(init_frame=9, keyframes=3, map_points=158, ate_m=0.012706)
 INIT_TOL = 1e-4
+# Phase 14, the orbit: frames 0-24 of mono_loop_closure_pair's orbit (260
+# frames, 1.25 orbits, 320x240, 800 features; both packages lose it near
+# frame 20) through MonocularSystem on the card and on the CPU, with the same
+# draws. Poses are held in units of the map's scale (the initial median
+# depth).
+MONO_ORBIT = dict(n_frames=260, orbits=1.25, scale=0.5, n_features=800,
+                  seed=0)
+MONO_ORBIT_STEPS = 25
+MONO_ORBIT_STEP_TOL = 1e-4     # one step on the card from the CPU's state
 # Phase 15: StereoSystem over 10 frames (seed 7, amplitude 0.2), with
 # tests/test_stereo.py's limits.
 STEREO_FRAMES, STEREO_SEED, STEREO_AMPLITUDE = 10, 7, 0.2
@@ -1376,7 +1391,8 @@ def phase_mono(torch, dev) -> None:
     """Phase 14: ``MonocularSystem`` over 12 frames on ``dev`` with the
     counts zeroed before and read after, held to ``tests/test_mono.py``'s
     limits; the run's first initializer input, a Sim(3) RANSAC problem and
-    a Sim(3) pose graph on the card against the CPU."""
+    a Sim(3) pose graph on the card against the CPU; the orbit
+    (``mono_orbit_phase``)."""
     import numpy as np
 
     from sindslam_tpu_torch import config as t_config
@@ -1460,6 +1476,216 @@ def phase_mono(torch, dev) -> None:
           f"solve moved them by up to {out['moved']:.4f}; accept flags card "
           f"{out['accepts'][0]}, CPU {out['accepts'][1]}, float64 "
           f"{out['accepts'][2]}", flush=True)
+    mono_orbit_phase(torch, dev, ck)
+
+
+def orbit_frames(synthetic, n_steps: int, n_frames: int, orbits: float,
+                 scale: float, seed: int) -> list:
+    """The first ``n_steps`` frames of ``make_orbit_sequence(n_frames,
+    ...)``, rendered alone (the same frames, without rendering the rest)."""
+    scene = synthetic.make_orbit_room_scene(seed)
+    if scale != 1.0:
+        scene = synthetic._scale_scene(scene, scale)
+    poses = synthetic.make_orbit_trajectory(n_frames, orbits=orbits, seed=seed)
+    out = []
+    for i in range(n_steps):
+        rgb, depth, dyn = scene.render(poses[i], None)
+        out.append((rgb, depth, dyn, poses[i], i / 30.0))
+    return out
+
+
+def mono_frame(torch, feats, ts, device):
+    """The monocular ``FrameData`` ``MonocularSystem.track`` builds from
+    ORB features, on ``device``."""
+    from sindslam_tpu_torch.slam.frame import FrameData
+
+    n = feats.xy.shape[0]
+    return FrameData(
+        xy=feats.xy.to(device), level=feats.level.to(device),
+        angle=feats.angle.to(device), desc=feats.desc.to(device),
+        valid=feats.valid.to(device),
+        depth=torch.zeros(n, dtype=torch.float32, device=device),
+        ur=torch.full((n,), -1.0, dtype=torch.float32, device=device),
+        timestamp=ts)
+
+
+def mono_step(mono, frame, ts):
+    """One frame of ``MonocularSystem.track`` after its ORB extraction."""
+    if not mono.initialized:
+        return mono._try_initialize(frame, ts)
+    return mono.slam.track_frame(frame, ts)
+
+
+def mono_row(mono, T, kf) -> tuple:
+    """(initialised, keyframe, lost, Tcw as float64 numpy, valid points)."""
+    import numpy as np
+
+    return (bool(mono.initialized), bool(kf),
+            bool(mono.initialized and mono.lost), np.asarray(T, np.float64),
+            mono.slam.map.valid.copy())
+
+
+def mono_orbit_run(frames, cfg, device) -> dict:
+    """``MonocularSystem.track`` over ``frames`` on ``device``: a
+    ``mono_row`` per frame, and the ORB features of each frame (on the
+    CPU)."""
+    from sindslam_tpu_torch.frontend import orb
+    from sindslam_tpu_torch.slam import mono as mono_mod
+
+    real = orb.extract_orb
+    feats = []
+
+    def extract(*a, **k):
+        out = real(*a, **k)
+        feats.append(orb.OrbFeatures(*(x.cpu() for x in out)))
+        return out
+
+    orb.extract_orb = extract
+    try:
+        mono = mono_mod.MonocularSystem(cfg, device=device)
+        rows = [mono_row(mono, *mono.track(rgb, ts))
+                for rgb, _d, _dyn, _pose, ts in frames]
+    finally:
+        orb.extract_orb = real
+    return dict(rows=rows, feats=feats)
+
+
+def mono_orbit_steps(torch, frames, cfg, feats, devices) -> list:
+    """``MonocularSystem`` on ``devices[1]`` over ``frames`` with the given
+    ORB features, and before each frame from the second on its state
+    carried to ``devices[0]`` (``convert.mono_from_reference``) and
+    stepped once there on the same features: per frame the two
+    ``mono_row``s (None for the first)."""
+    from sindslam_tpu_torch import convert
+    from sindslam_tpu_torch.slam.mono import MonocularSystem
+
+    base = MonocularSystem(cfg, device=devices[1])
+    out = []
+    for i, ((*_f, ts), f) in enumerate(zip(frames, feats)):
+        twin = convert.mono_from_reference(base, devices[0]) if i else None
+        b = mono_row(base, *mono_step(base, mono_frame(torch, f, ts,
+                                                       devices[1]), ts))
+        a = None if twin is None else mono_row(
+            twin, *mono_step(twin, mono_frame(torch, f, ts, devices[0]), ts))
+        out.append((a, b))
+    return out
+
+
+def rows_apart(ra, rb) -> dict:
+    """Two runs' ``mono_row``s: the frames whose flags or valid points
+    differ, and the largest pose gap (the frame's camera centres, map
+    units)."""
+    import numpy as np
+
+    apart = [i for i, (a, b) in enumerate(zip(ra, rb))
+             if a[:3] != b[:3] or not np.array_equal(a[4], b[4])]
+    gaps = [float(np.linalg.norm(np.linalg.inv(a[3])[:3, 3]
+                                 - np.linalg.inv(b[3])[:3, 3]))
+            for a, b in zip(ra, rb)]
+    return dict(apart=apart, pose_gap=max(gaps))
+
+
+def mono_orbit_cuda_vs_cpu(torch, devices=("cuda", "cpu"),
+                           n_steps: int = MONO_ORBIT_STEPS,
+                           read_counts=dict) -> dict:
+    """The orbit's first frames through ``MonocularSystem`` on two devices
+    with the same draws (the port's seeded CPU generators). Free runs: the
+    first device and the second on their own ORB features, and the second
+    on the first's features; and one step at a time on the first device
+    from the second's state on the first's features
+    (``mono_orbit_steps``). ``read_counts()`` is called just after the
+    first free run (the caller zeroes the launch counts before)."""
+    from sindslam_tpu_torch.datasets import synthetic
+    from sindslam_tpu_torch.evaluation.benchmark import scaled_system_config
+
+    kw = MONO_ORBIT
+    frames = orbit_frames(synthetic, n_steps, kw["n_frames"], kw["orbits"],
+                          kw["scale"], kw["seed"])
+    cfg = scaled_system_config(kw["scale"], n_features=kw["n_features"])
+    t0 = time.perf_counter()
+    a = mono_orbit_run(frames, cfg, devices[0])
+    sync(torch, devices[0])
+    secs = time.perf_counter() - t0
+    counts = dict(read_counts())
+    own = mono_orbit_run(frames, cfg, devices[1])
+    steps = mono_orbit_steps(torch, frames, cfg, a["feats"], devices)
+    fed = [b for _a, b in steps]
+    pairs = [(w, b) for w, b in steps if w is not None]
+    rows = a["rows"]
+
+    def kps(f):
+        v = f.valid.numpy()
+        return {(round(float(x), 3), round(float(y), 3), int(lv))
+                for (x, y), lv in zip(f.xy.numpy()[v], f.level.numpy()[v])}
+
+    ious = [len(kps(x) & kps(y)) / max(len(kps(x) | kps(y)), 1)
+            for x, y in zip(a["feats"], own["feats"])]
+    return dict(
+        steps=n_steps, seconds=secs, counts=counts,
+        init_frame=next((i for i, r in enumerate(rows) if r[0]), None),
+        keyframes=[i for i, r in enumerate(rows) if r[1]],
+        lost=[i for i, r in enumerate(rows) if r[2]],
+        points=int(rows[-1][4].sum()), orb_iou=min(ious),
+        own=rows_apart(rows, own["rows"]),
+        fed=rows_apart(rows, fed),
+        fed_lists=([i for i, r in enumerate(fed) if r[1]],
+                   [i for i, r in enumerate(fed) if r[2]]),
+        one_step=rows_apart([w for w, _b in pairs],
+                            [b for _w, b in pairs]),
+        points_at_keyframes=[(i, int(b[4].sum()), int(w[4].sum()))
+                             for i, (w, b) in enumerate(steps)
+                             if w is not None and (w[1] or b[1])])
+
+
+def mono_orbit_phase(torch, dev, ck) -> None:
+    """Phase 14's orbit part: ``mono_orbit_cuda_vs_cpu`` with the launch
+    counts zeroed before the card's run and read after it. Holds every
+    step on the card from the CPU's state (on the card's ORB features) to
+    the CPU's step: the same initialised flag, keyframe verdict, lost flag
+    and map points, the pose within ``MONO_ORBIT_STEP_TOL`` of the map's
+    unit. The free runs part by float32 rounding in a weak local BA window
+    (ROADMAP Queue 3, pinned): printed, not held. Deterministic sums, so
+    that the card's free run is the same in every run."""
+    sync(torch, dev)
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        o = mono_orbit_cuda_vs_cpu(torch, devices=(dev, "cpu"),
+                                   read_counts=lambda: ck.LAUNCHES)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    kw = MONO_ORBIT
+    print(f"mono orbit: frames 0-{o['steps'] - 1} of mono_loop_closure_pair's "
+          f"orbit ({kw['n_frames']} frames, {kw['orbits']} orbits, scale "
+          f"{kw['scale']}, {kw['n_features']} features), the port's own draws "
+          f"on both devices. On {dev}: initialised at frame {o['init_frame']},"
+          f" keyframes at {o['keyframes']}, lost at {o['lost']}, map points "
+          f"{o['points']}, {o['seconds']:.1f} s; K1-K4 launches {o['counts']}",
+          flush=True)
+    print(f"mono orbit: one step at a time on {dev} from the CPU's state, on "
+          f"the card's ORB features: flags or points apart at "
+          f"{o['one_step']['apart']}, poses within "
+          f"{o['one_step']['pose_gap']:.3g} of the map's unit (tol "
+          f"{MONO_ORBIT_STEP_TOL}); map points after each keyframe (CPU, "
+          f"card) {o['points_at_keyframes']}", flush=True)
+    print(f"mono orbit: free runs (float32 rounding, pinned): the CPU on the "
+          f"card's features parts at {o['fed']['apart'][:1]} (keyframes "
+          f"{o['fed_lists'][0]}, lost at {o['fed_lists'][1]}, largest pose "
+          f"gap {o['fed']['pose_gap']:.3g}); on its own ORB (keypoint IoU "
+          f"with the card's >= {o['orb_iou']:.4f}) at "
+          f"{o['own']['apart'][:1]}; "
+          f"{time.perf_counter() - t0:.1f} s in all", flush=True)
+    check(o["init_frame"] is not None, "mono orbit: not initialised")
+    check(not o["one_step"]["apart"],
+          f"mono orbit: a step on the card from the CPU's state differs in "
+          f"its flags or map points at frames {o['one_step']['apart']}")
+    check(o["one_step"]["pose_gap"] <= MONO_ORBIT_STEP_TOL,
+          f"mono orbit: a step on the card from the CPU's state is "
+          f"{o['one_step']['pose_gap']:.3g} from the CPU's")
+    for name in ("fast_nms", "brief_from_patches"):
+        check(o["counts"][name] > 0,
+              f"kernel {name} never launched in the mono orbit")
 
 
 def phase_stereo(torch, dev) -> None:

@@ -293,3 +293,22 @@ def system_from_reference(s: Any, device=None, pending: str = "redo"):
         out._pending.append(("ba", kf, (None, problem_t, window_t,
                                         np.array(lut)), packed))
     return out
+
+
+def mono_from_reference(m: Any, device=None, pending: str = "redo"):
+    """The port's ``MonocularSystem`` in the state a reference one holds
+    between two frames: ``initialized``, ``_init_attempts``, the pending
+    initialization frame and its timestamp, and ``slam`` through
+    ``system_from_reference``. Injected draws are the caller's to set."""
+    from sindslam_tpu_torch.slam.mono import MonocularSystem
+
+    cfg = config_from_dict(dataclasses.asdict(m.cfg))
+    out = MonocularSystem(cfg, min_init_matches=int(m.min_init_matches),
+                          device=device)
+    out.slam = system_from_reference(m.slam, out.device, pending=pending)
+    out.initialized = bool(m.initialized)
+    out._init_attempts = int(m._init_attempts)
+    if m._ref is not None:
+        ref, ts = m._ref
+        out._ref = (frame_from_numpy(ref, out.device), float(ts))
+    return out

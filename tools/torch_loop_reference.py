@@ -11,6 +11,12 @@ locates where the port and JAX part.
         [--stop-after N] [--dump-ba DIR] --frames 330 --orbits 1.3
     JAX_PLATFORMS=cpu python3 tools/torch_loop_reference.py --tpu-brief
         --bisect-ba DIR/ba_frame<i>_0.npz ... | --bisect-track DIR/track_frame<i>_0.npz ...
+    JAX_PLATFORMS=cpu python3 tools/torch_loop_reference.py --tpu-brief
+        --mono [--cross-feed | --cross-feed-at F ...] [--stop-after N]
+        [--dump-ba DIR] [--init-f32] [--record FILE]
+    python3 tools/torch_loop_reference.py --replay FILE --device cuda
+        [--cross-feed] [--stop-after N]
+    python3 tools/torch_loop_reference.py --own N --device cuda
 
 Runs ``sindslam_tpu.evaluation.benchmark.loop_closure_pair`` (JAX, CPU
 backend): the room-orbit sequence (``make_orbit_sequence``, seed 0) at
@@ -58,11 +64,43 @@ and the cross-fed frames' track-step arguments to DIR;
 Marquardt iteration by iteration (accept flags and costs, the stage-1 cut,
 each of JAX's iterations stepped by the port, float32 and float64);
 ``--bisect-track`` takes a track step through both function by function.
+A ``tri_frame<i>_<n>.npz`` file (``--dump-ba`` writes one for every JAX
+triangulation) given to ``--bisect-ba`` runs that triangulation through
+both packages in float32 and float64.
 
-Every number it prints is an accuracy or a count from this machine's CPU,
-not a device measurement (the seconds it prints are this machine's CPU
-time). This tool imports both packages; the port imports neither JAX nor
-``sindslam_tpu``.
+``--mono`` is the lockstep of the two packages' ``MonocularSystem`` on
+``mono_loop_closure_pair``'s orbit (260 frames, 1.25 orbits unless
+``--frames``/``--orbits`` say otherwise): JAX's ORB features, JAX's
+initializer, vocabulary and relocalizer draws in the port. Per frame it
+prints the pose gap in units of the map's scale (the initial median depth,
+which the map is scaled to), the keyframe verdicts, each package's
+initialised and lost flags, map points and decision inputs, the
+relocalization attempts (candidates and answers) and, after a map change,
+both maps' state. ``--cross-feed`` makes the port from JAX's state before
+every frame (``convert.mono_from_reference``). ``--init-f32`` runs the
+port's initializer RANSAC in float32 (``ransac_models_f32``, a probe of the
+port's float64 one). The summary line: the first frame whose initialised
+flag, keyframe verdict or lost flag differs or whose pose parts by more
+than 2e-3 map units or 0.1 deg, with the first recorded call apart there;
+both packages' keyframe frames, lost frames (count and first) and map
+points; the relocalization attempts that had the same candidates and
+answers; the largest pose gap; with ``--cross-feed``, the first frame whose
+single step from JAX's state differs and its first call apart.
+``--record FILE`` writes JAX's features, steps, calls and the draws the
+port used to FILE; ``--replay FILE`` runs where there is no JAX (on the
+card): the port on ``--device`` and on the CPU on the recorded features
+and draws, the device held to JAX's recorded steps and to the CPU's, with
+``--cross-feed`` each device step made from the CPU's state (and the first
+call that parts there, a triangulation or a local BA, solved again in
+float32 and float64 on both devices).
+``--own N`` runs the port's own ``MonocularSystem.track`` (its ORB and
+draws) over the orbit N times on ``--device`` (``--deterministic``: under
+``torch.use_deterministic_algorithms``).
+
+Every number it prints is an accuracy or a count, not a device
+measurement (the seconds it prints are command time). This tool imports
+both packages, but not in ``--replay`` and ``--own``; the port imports
+neither JAX nor ``sindslam_tpu``.
 """
 
 from __future__ import annotations
@@ -74,6 +112,9 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+# triangulate_with_neighbors's arguments after the new keyframe's frame
+TRI_ARGS = ("free1", "Tcw1", "nbr_xy", "nbr_desc", "nbr_level", "nbr_valid",
+            "nbr_Tcw")
 
 
 def use_tpu_brief() -> None:
@@ -160,35 +201,15 @@ class CallLog:
         return calls
 
 
-def install_call_log():
-    import numpy as np
+def install_call_log(sides=("jax", "port")):
+    """A ``CallLog`` over the calls of the packages in ``sides`` ("jax",
+    "port"; the port's alone imports no JAX)."""
+    import importlib
 
-    from sindslam_tpu.slam import local_map as j_lm
-    from sindslam_tpu.slam import tracking as j_tr
-    from sindslam_tpu.slam import triangulation as j_tri
-    from sindslam_tpu_torch.slam import ba as t_ba
-    from sindslam_tpu_torch.slam import local_map as t_lm
-    from sindslam_tpu_torch.slam import system as t_sys
-    from sindslam_tpu_torch.slam import triangulation as t_tri
+    import numpy as np
 
     def host(x):
         return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
-
-    log = CallLog()
-    log.wrap(j_tr, "full_track_step", "jax", lambda o: host(o.packed))
-    log.wrap(t_sys, "full_track_step", "port", lambda o: host(o.packed))
-    log.wrap(j_tri, "triangulate_with_neighbors", "jax", host)
-    log.wrap(t_tri, "triangulate_with_neighbors", "port", host)
-    log.wrap(j_lm, "local_bundle_adjustment", "jax",
-             lambda o: (host(o.poses), host(o.points), host(o.obs_inlier)))
-    for mod in (t_lm, t_ba):   # the map's solve; the cross-feed's again
-        log.wrap(mod, "local_bundle_adjustment", "port",
-                 lambda o: (host(o.poses), host(o.points), host(o.obs_inlier)))
-    # the loop correction: RANSAC, refinements, gates, the pose graph (its
-    # input too), the fusion and the post-loop global BA (the map's
-    # keyframe poses after it)
-    from sindslam_tpu.slam import loop_closing as j_lc
-    from sindslam_tpu_torch.slam import loop_closing as t_lc
 
     def tup(o):
         return tuple(host(x) for x in o) if isinstance(o, tuple) else host(o)
@@ -196,13 +217,30 @@ def install_call_log():
     def kf_poses(m, _out):
         return np.stack([k.Tcw for k in m.keyframes]).astype(np.float64)
 
-    from sindslam_tpu.slam import gba as j_gba
-    from sindslam_tpu_torch.slam import gba as t_gba
+    def ba_out(o):
+        return host(o.poses), host(o.points), host(o.obs_inlier)
 
-    for side, gm in (("jax", j_gba), ("port", t_gba)):
-        log.wrap(gm, "joint_global_ba", side,
-                 lambda o: (host(o.poses), host(o.points), host(o.obs_inlier)))
-    for side, lc, lm in (("jax", j_lc, j_lm), ("port", t_lc, t_lm)):
+    log = CallLog()
+    for side in sides:
+        pkg = "sindslam_tpu" if side == "jax" else "sindslam_tpu_torch"
+
+        def mod(name, _pkg=pkg):
+            return importlib.import_module(f"{_pkg}.slam.{name}")
+
+        lm, lc = mod("local_map"), mod("loop_closing")
+        # the track step as each system calls it: JAX's through its module,
+        # the port's by the name its system imports
+        log.wrap(mod("tracking" if side == "jax" else "system"),
+                 "full_track_step", side, lambda o: host(o.packed))
+        log.wrap(mod("triangulation"), "triangulate_with_neighbors", side,
+                 host)
+        # the port: the map's solve, and the cross-feed's again
+        for m in (lm,) if side == "jax" else (lm, mod("ba")):
+            log.wrap(m, "local_bundle_adjustment", side, ba_out)
+        log.wrap(mod("gba"), "joint_global_ba", side, ba_out)
+        # the loop correction: RANSAC, refinements, gates, the pose graph
+        # (its input too), the fusion and the post-loop global BA (the
+        # map's keyframe poses after it)
         for fn in ("ransac_rigid", "refine_rigid_irls"):
             log.wrap(lc, fn, side, tup)
         graph_solve = lc.optimize_pose_graph
@@ -224,11 +262,52 @@ def install_call_log():
     return log
 
 
+def install_mono_call_log(log: CallLog, sides=("jax", "port")) -> None:
+    """Add the calls only the monocular path makes to ``log``: the two-view
+    initializer (model, R, t, inlier flags, points; NaN for a refusal), the
+    relocalizer's candidates (keyframe ids and scores), each PnP solve
+    (pose, inliers) and each relocalization's answer (inliers; NaN for a
+    refusal)."""
+    import importlib
+
+    import numpy as np
+
+    nan = np.array(np.nan)
+
+    def init_out(r):
+        if r is None or not r.ok:
+            return nan
+        return (np.array(float(r.model == "H")), np.asarray(r.R, np.float64),
+                np.asarray(r.t, np.float64),
+                np.asarray(r.inliers, np.float64),
+                np.asarray(r.points3d, np.float64))
+
+    def pnp_out(r):
+        T, n = r
+        return (nan if T is None else np.asarray(
+            T.cpu() if hasattr(T, "cpu") else T, np.float64),
+            np.array(float(n)))
+
+    for side in sides:
+        pkg = "sindslam_tpu" if side == "jax" else "sindslam_tpu_torch"
+        mono, bow, lc, pnp = (importlib.import_module(f"{pkg}.slam.{name}")
+                              for name in ("mono", "bow", "loop_closing",
+                                           "pnp"))
+        log.wrap(mono, "initialize_monocular", side, init_out)
+        log.wrap(pnp, "relocalize_pnp", side, pnp_out)
+        log.wrap_method(bow.KeyFrameDatabase, "query_accumulated", side,
+                        lambda _o, out: np.array(out, np.float64).reshape(
+                            -1, 2))
+        log.wrap_method(lc.Relocalizer, "relocalize", side,
+                        lambda _o, out: nan if out is None
+                        else np.array(float(out[1])))
+
+
 def track_counts(packed, P: int) -> str:
     """The quantities a track step decides a frame by, from its packed
     output: frame-to-frame inliers, map points matched by projection, map
     inliers after ``pose_optimization``."""
-    from sindslam_tpu.slam.tracking import unpack_track_out
+    from sindslam_tpu_torch.slam.tracking import unpack_track_out
 
     _poses, counts, _idx, flags = unpack_track_out(packed, P)
     return (f"f2f inl {int(counts[0])}, matched {int(flags[0].sum())}, "
@@ -251,7 +330,7 @@ def system_line(s, calls, P: int) -> str:
             f"{[st[0] for st in s._pending]}")
 
 
-def map_gap(ja, tb) -> str:
+def map_gap(ja, tb, names=("JAX", "port"), mono: bool = False) -> str:
     """Map state of two systems: valid points, observation pairs, the
     largest keyframe-pose gap (matrix inverse), the largest gap of a point
     valid in both, and the points valid in one and not the other."""
@@ -259,19 +338,29 @@ def map_gap(ja, tb) -> str:
 
     jm, tm = ja.map, tb.map
     n = max(jm._next, tm._next)
-    jv, tv = jm.valid[:n], tm.valid[:n]
+
+    def head(x):            # the first n rows (a snapshot holds _next)
+        out = np.zeros((n,) + x.shape[1:], x.dtype)
+        out[:min(n, len(x))] = x[:n]
+        return out
+
+    jv, tv = head(jm.valid), head(tm.valid)
     both = jv & tv
-    dp = (float(np.abs(jm.pos[:n][both] - tm.pos[:n][both]).max())
+    dp = (float(np.abs(head(jm.pos)[both] - head(tm.pos)[both]).max())
           if both.any() else 0.0)
     kf = [pose_gap(a.Tcw, b.Tcw)
           for a, b in zip(jm.keyframes, tm.keyframes)]
     worst = max(kf, default=(0.0, 0.0))
+
+    def dist(x):            # metres as mm; a mono map's own unit as is
+        return f"{x:.3e} map units" if mono else f"{1e3 * x:.4f} mm"
+
     return (f"points {int(jv.sum())} / {int(tv.sum())}, observations "
             f"{len(jm._obs_pid)} / {len(tm._obs_pid)}, keyframes "
             f"{len(jm.keyframes)} / {len(tm.keyframes)}; largest keyframe "
-            f"gap {1e3 * worst[0]:.4f} mm {worst[1]:.5f} deg; largest point "
-            f"gap {1e3 * dp:.4f} mm; only JAX {int((jv & ~tv).sum())}, only "
-            f"port {int((tv & ~jv).sum())}")
+            f"gap {dist(worst[0])} {worst[1]:.5f} deg; largest point "
+            f"gap {dist(dp)}; only {names[0]} {int((jv & ~tv).sum())}, only "
+            f"{names[1]} {int((tv & ~jv).sum())}")
 
 
 def step_differs(ja, tb, jT, tT, jk, tk, pos_tol: float, rot_tol: float
@@ -325,7 +414,8 @@ def track_args_apart(jargs, targs) -> str:
     return ", ".join(out) or "equal"
 
 
-def first_call_apart(jcalls, tcalls, P: int) -> str:
+def first_call_apart(jcalls, tcalls, P: int, names=("JAX", "port"),
+                     mono: bool = False) -> str:
     """The first recorded call whose output differs between the packages:
     its name, the largest difference of its packed output, and for a track
     step the decision counts of both."""
@@ -333,15 +423,16 @@ def first_call_apart(jcalls, tcalls, P: int) -> str:
 
     for (jn, jo), (tn, to) in zip(jcalls, tcalls):
         if jn != tn:
-            return f"call order differs: JAX {jn}, port {tn}"
+            return f"call order differs: {names[0]} {jn}, {names[1]} {tn}"
         if jn in ("local_bundle_adjustment", "joint_global_ba"):
             g = max(pose_gap(a, b) for a, b in zip(jo[0], to[0]))
             dp = float(np.abs(jo[1] - to[1]).max())
             flips = int((jo[2] != to[2]).sum())
             if g[0] > 1e-5 or dp > 1e-4 or flips:
-                return (f"{jn}: keyframe poses up to {1e3 * g[0]:.4f} mm "
-                        f"{g[1]:.5f} deg apart, points up to {1e3 * dp:.4f} "
-                        f"mm, {flips} inlier flags apart (see --bisect-ba)")
+                unit, k = ("map units", 1.0) if mono else ("mm", 1e3)
+                return (f"{jn}: keyframe poses up to {k * g[0]:.4g} {unit} "
+                        f"{g[1]:.5f} deg apart, points up to {k * dp:.4g} "
+                        f"{unit}, {flips} inlier flags apart (see --bisect-ba)")
             continue
         if isinstance(jo, tuple):
             for x, y in zip(jo, to):
@@ -358,25 +449,38 @@ def first_call_apart(jcalls, tcalls, P: int) -> str:
         if jn == "full_track_step":
             jc, tc = track_counts(jo, P), track_counts(to, P)
             if jc != tc or d > 1e-4:
-                return f"{jn}: JAX ({jc}), port ({tc}), max |d| {d:.3e}"
+                return (f"{jn}: {names[0]} ({jc}), {names[1]} ({tc}), max "
+                        f"|d| {d:.3e}")
         elif d > 1e-4:
             return f"{jn}: max |d| of the packed output {d:.3e}"
     if len(jcalls) != len(tcalls):
-        return (f"call counts differ: JAX {[n for n, _ in jcalls]}, port "
-                f"{[n for n, _ in tcalls]}")
+        return (f"call counts differ: {names[0]} {[n for n, _ in jcalls]}, "
+                f"{names[1]} {[n for n, _ in tcalls]}")
     return "no recorded call differs beyond 1e-4"
 
 
 def dump_ba_problems(calls, frame: int, out_dir: str) -> None:
     """Write the arguments of each JAX local BA call of a frame to
-    ``out_dir/ba_frame<frame>_<n>.npz`` (the ``BAProblem`` fields), and of
+    ``out_dir/ba_frame<frame>_<n>.npz`` (the ``BAProblem`` fields), of
     each joint global BA to ``gba_frame<frame>_<n>.npz`` (with its keyword
-    arguments as ``kw_<name>``)."""
+    arguments as ``kw_<name>``) and of each triangulation to
+    ``tri_frame<frame>_<n>.npz`` (the new keyframe's fields as ``cur_*``,
+    its free mask and pose, the neighbours' stacked fields and poses)."""
     import numpy as np
 
-    n = {"local_bundle_adjustment": 0, "joint_global_ba": 0}
+    n = {"local_bundle_adjustment": 0, "joint_global_ba": 0,
+         "triangulate_with_neighbors": 0}
     for name, a, k in calls:
         if name not in n:
+            continue
+        if name == "triangulate_with_neighbors":
+            cur = a[0]
+            np.savez(os.path.join(out_dir, f"tri_frame{frame}_{n[name]}.npz"),
+                     **{f"cur_{f}": np.asarray(getattr(cur, f))
+                        for f in cur._fields if f != "timestamp"},
+                     **{key: np.asarray(v) for key, v in zip(TRI_ARGS,
+                                                             a[1:8])})
+            n[name] += 1
             continue
         p = a[0]
         kind = "ba" if name == "local_bundle_adjustment" else "gba"
@@ -555,6 +659,604 @@ def lockstep(kw: dict, stop_after=None, cross_feed: bool = False,
     return summary
 
 
+def jax_init_draws(seed: int, n_hyp: int, n: int):
+    """The JAX initializer's draws: ``gumbel(PRNGKey(seed), (n_hyp, n))``."""
+    import jax
+    import numpy as np
+
+    return np.asarray(jax.random.gumbel(jax.random.PRNGKey(seed), (n_hyp, n)))
+
+
+def mono_step(m, frame, t):
+    """One frame of a ``MonocularSystem`` on given features (its ``track``
+    after the ORB extraction)."""
+    if not m.initialized:
+        return m._try_initialize(frame, t)
+    return m.slam.track_frame(frame, t)
+
+
+def mono_line(m) -> str:
+    s = m.slam
+    return (f"initialized {m.initialized}, lost {s.lost}, points "
+            f"{int(s.map.valid.sum())}, keyframes {len(s.map.keyframes)}")
+
+
+def reloc_calls(calls) -> list:
+    """The relocalization attempts among a frame's recorded calls: per
+    ``relocalize``, the candidates (keyframe id, score) and its answer."""
+    out, cands = [], []
+    for name, o in calls:
+        if name == "query_accumulated":
+            cands.append([(int(k), round(float(s), 6)) for k, s in o])
+        elif name == "relocalize":
+            out.append((cands[-1] if cands else [],
+                        None if o.ndim == 0 and o != o else int(o)))
+    return out
+
+
+def mono_state(m, calls, P: int, map_changed: bool) -> dict:
+    """What a monocular step is compared by: the flags, pose and map points
+    after it, its recorded calls, the decision inputs, and (after a map
+    change) the map's state as ``map_gap`` reads it."""
+    import types
+
+    import numpy as np
+
+    s = m.slam
+    line = mono_line(m) + (f"; {system_line(s, calls, P)}" if m.initialized
+                           else "")
+    snap = None
+    if map_changed:
+        n = s.map._next
+        snap = types.SimpleNamespace(map=types.SimpleNamespace(
+            _next=n, valid=s.map.valid[:n].copy(), pos=s.map.pos[:n].copy(),
+            _obs_pid=np.array(s.map._obs_pid),
+            keyframes=[types.SimpleNamespace(Tcw=np.array(k.Tcw))
+                       for k in s.map.keyframes]))
+    return dict(init=bool(m.initialized), lost=bool(m.initialized and s.lost),
+                points=int(s.map.valid.sum()), calls=calls, line=line,
+                map=snap)
+
+
+class MonoPair:
+    """Two monocular runs compared frame by frame: the first frame whose
+    initialised flag, keyframe verdict or lost flag differs or whose pose
+    parts by more than 2e-3 map units or 0.1 deg, with the first recorded
+    call apart there; each run's keyframe and lost frames; the
+    relocalization attempts with the same candidates and answers; the
+    largest pose gap. Map units: the initial median depth, the map's
+    scale."""
+
+    def __init__(self, names, P: int):
+        self.names, self.P = names, P
+        self.first, self.worst = None, (0.0, 0.0, -1)
+        self.kfs, self.lost = ([], []), ([], [])
+        self.relocs = [0, 0]
+
+    def frame(self, i: int, a: dict, b: dict, say) -> None:
+        na, nb = self.names
+        for side, r in enumerate((a, b)):
+            if r["kf"]:
+                self.kfs[side].append(i)
+            if r["lost"]:
+                self.lost[side].append(i)
+        ra, rb = reloc_calls(a["calls"]), reloc_calls(b["calls"])
+        self.relocs[0] += len(ra)
+        self.relocs[1] += int(ra == rb) * len(ra)
+        d_pos, d_rot = pose_gap(a["T"], b["T"])
+        if d_pos > self.worst[0]:
+            self.worst = (d_pos, d_rot, i)
+        say(f"frame {i} ({na} / {nb}): pose gap {d_pos:.3e} map units "
+            f"{d_rot:.5f} deg; keyframe {a['kf']} / {b['kf']}")
+        say(f"  {na}: {a['line']}")
+        say(f"  {nb}: {b['line']}")
+        if ra or rb:
+            say(f"  relocalization (candidates, inliers or None) {na} {ra}; "
+                f"{nb} {rb}{'' if ra == rb else '; APART'}")
+        if a["map"] is not None or b["map"] is not None:
+            if a["map"] is not None and b["map"] is not None:
+                say(f"  map ({na} / {nb}): "
+                    f"{map_gap(a['map'], b['map'], self.names, mono=True)}")
+            else:
+                say(f"  map changed in {na if a['map'] is not None else nb} "
+                    f"only")
+        if self.first is None and (
+                (a["init"], a["kf"], a["lost"]) != (b["init"], b["kf"],
+                                                    b["lost"])
+                or d_pos > 2e-3 or d_rot > 0.1):
+            apart = first_call_apart(a["calls"], b["calls"], self.P,
+                                     self.names, mono=True)
+            self.first = (i, apart, d_pos, d_rot)
+            print(f"first frame that differs ({na} / {nb}): {i} (initialised "
+                  f"{a['init']} / {b['init']}, keyframe {a['kf']} / "
+                  f"{b['kf']}, lost {a['lost']} / {b['lost']}; pose "
+                  f"{d_pos:.3e} map units {d_rot:.4f} deg; points "
+                  f"{a['points']} / {b['points']}); its first call apart: "
+                  f"{apart}", flush=True)
+
+    def summary(self, points) -> str:
+        na, nb = self.names
+        f = self.first
+        return (f"{na} / {nb}: "
+                + ("no frame differs" if f is None else
+                   f"first frame apart {f[0]} ({f[1]})")
+                + f"; keyframes at {na} {self.kfs[0]}, {nb} {self.kfs[1]}; "
+                f"lost frames {na} {len(self.lost[0])} (first "
+                f"{self.lost[0][:1]}), {nb} {len(self.lost[1])} (first "
+                f"{self.lost[1][:1]}); map points {na} {points[0]}, {nb} "
+                f"{points[1]}; relocalization attempts {self.relocs[0]}, the "
+                f"same candidates and answers in {self.relocs[1]}; largest "
+                f"pose difference {self.worst[0]:.3e} map units, "
+                f"{self.worst[1]:.4f} deg at frame {self.worst[2]}")
+
+
+class DrawCache:
+    """The draws a run asked for, by kind and arguments: ``wrap`` records
+    what an injected draw function returns; ``lookup`` serves them again
+    (a replay without JAX) and raises on a draw the record lacks."""
+
+    def __init__(self, draws=None):
+        self.draws = {} if draws is None else draws
+
+    def wrap(self, kind: str, fn):
+        def draw(*a):
+            key = (kind,) + tuple(int(x) for x in a)
+            if key not in self.draws:
+                self.draws[key] = fn(*a)
+            return self.draws[key]
+        return draw
+
+    def lookup(self, kind: str):
+        def draw(*a):
+            key = (kind,) + tuple(int(x) for x in a)
+            if key not in self.draws:
+                raise KeyError(f"the record has no {kind} draw {key[1:]}: "
+                               f"this run asked for one JAX's did not")
+            return self.draws[key]
+        return draw
+
+
+def inject_draws(m, source) -> None:
+    """A ``MonocularSystem``'s initializer, vocabulary and relocalizer draws
+    from ``source(kind)`` ("init", "vocab", "reloc")."""
+    m.init_draws = source("init")
+    r = m.slam.relocalizer
+    r.vocab_draws = source("vocab")
+    r.pnp_draws = r.loop_draws = source("reloc")
+
+
+def mono_lockstep(kw: dict, stop_after=None, cross_feed: bool = False,
+                  pending: str = "redo", cross_feed_at=None,
+                  init_f32: bool = False, dump_dir=None, record=None) -> dict:
+    """Step both packages' ``MonocularSystem`` a frame at a time on JAX's
+    ORB features, with JAX's initializer, vocabulary and relocalizer draws
+    in the port (``MonoPair`` prints and tallies each frame). With
+    ``cross_feed`` (or before the frames of ``cross_feed_at``) a third
+    system, the port's, is made from JAX's state
+    (``convert.mono_from_reference``) and stepped once beside JAX's step.
+    ``init_f32`` swaps the port's float64 initializer RANSAC for
+    ``ransac_models_f32``. ``dump_dir`` as in ``lockstep``. ``record``
+    writes JAX's features, steps, calls and the draws used to that file,
+    for ``mono_replay``. Returns the summary."""
+    import dataclasses
+    import pickle
+
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from sindslam_tpu.datasets.synthetic import make_orbit_sequence
+    from sindslam_tpu.evaluation import benchmark as j_bench
+    from sindslam_tpu.frontend import orb as j_orb
+    from sindslam_tpu.ops import image as j_im
+    from sindslam_tpu.slam import frame as j_frame
+    from sindslam_tpu.slam.mono import MonocularSystem as JMono
+    from sindslam_tpu_torch import convert
+    from sindslam_tpu_torch.slam import initializer as t_init
+    from sindslam_tpu_torch.slam.mono import MonocularSystem as TMono
+
+    cache = DrawCache()
+    jax_draws = {"init": cache.wrap("init", jax_init_draws),
+                 "vocab": cache.wrap("vocab", jax_vocab_draws),
+                 "reloc": cache.wrap("reloc", jax_relocalizer_draws)}
+    def say(*a):
+        print(*a, flush=True)
+
+    torch.set_num_threads(4)
+    if init_f32:
+        t_init._ransac_models = ransac_models_f32
+    log = install_call_log()
+    install_mono_call_log(log)
+    frames, _scene = make_orbit_sequence(
+        n_frames=kw["n_frames"], scale=kw["scale"], orbits=kw["orbits"],
+        seed=kw["seed"])
+    n_run = len(frames) if stop_after is None else min(stop_after + 1,
+                                                       len(frames))
+    cfg = j_bench.scaled_system_config(kw["scale"],
+                                       n_features=kw["n_features"])
+    cam = cfg.camera
+    P = cfg.tracking.ba_max_points
+    jm = JMono(cfg)
+    tm = TMono(convert.config_from_dict(dataclasses.asdict(cfg)),
+               device="cpu")
+    inject_draws(tm, jax_draws.get)
+    zero = jnp.zeros((cam.height, cam.width), jnp.int32)
+    pair = MonoPair(("JAX", "port"), P)
+    first_step, jcalls_prev, rec = None, [], []
+    t0 = time.perf_counter()
+    for i, (rgb, _depth, _gt, _pose, t) in enumerate(frames[:n_run]):
+        feats = j_orb.extract_orb(j_im.rgb_to_gray(jnp.asarray(rgb)), zero,
+                                  cfg.orb, height=cam.height, width=cam.width)
+        n = feats.xy.shape[0]
+        jf = j_frame.FrameData(
+            xy=feats.xy, level=feats.level, angle=feats.angle,
+            desc=feats.desc, valid=feats.valid,
+            depth=jnp.zeros(n, jnp.float32), ur=jnp.full(n, -1.0, jnp.float32),
+            timestamp=t)
+        hf = j_frame.FrameData(*(np.asarray(x) for x in jf[:7]), t)
+        tf = convert.frame_from_numpy(hf, "cpu")
+        twin, wpre = None, []
+        if cross_feed and (cross_feed_at is None or i in cross_feed_at):
+            twin = convert.mono_from_reference(jm, "cpu", pending=pending)
+            inject_draws(twin, jax_draws.get)
+            wpre = log.take("port")      # the deferred stages dispatched again
+        jpre = [c for c in jcalls_prev if c[0] != "full_track_step"]
+        jpre = jpre[len(jpre) - len(wpre):] if wpre else []
+        v_before = (jm.slam.map._map_version, tm.slam.map._map_version)
+        jT, jk = mono_step(jm, jf, t)
+        if dump_dir:
+            dump_ba_problems(log.args["jax"], i, dump_dir)
+            if twin is not None:
+                dump_track_step(log.args["jax"], i, dump_dir)
+        jcalls = log.take("jax")
+        jcalls_prev = jcalls
+        if twin is not None:
+            wT, wk = mono_step(twin, tf, t)
+            wcalls = log.take("port")
+        tT, tk = mono_step(tm, tf, t)
+        tcalls = log.take("port")
+        a = mono_state(jm, jcalls, P,
+                       jm.slam.map._map_version != v_before[0])
+        b = mono_state(tm, tcalls, P,
+                       tm.slam.map._map_version != v_before[1])
+        a.update(T=np.asarray(jT, np.float64), kf=bool(jk))
+        b.update(T=np.asarray(tT, np.float64), kf=bool(tk))
+        pair.frame(i, a, b, say)
+        if record:
+            rec.append(dict(a, feats={f: getattr(hf, f) for f in (
+                "xy", "level", "angle", "desc", "valid")}, t=t))
+        if twin is not None:
+            sd = (twin.initialized != jm.initialized
+                  or step_differs(jm.slam, twin.slam, jT, wT, jk, wk,
+                                  1e-4, 5e-3))
+            g = pose_gap(jT, wT)
+            say(f"  one step from JAX's state: pose gap {g[0]:.3e} map "
+                f"units {g[1]:.6f} deg, keyframe {wk}; "
+                f"{'DIFFERS' if sd else 'agrees'}; map: "
+                f"{map_gap(jm.slam, twin.slam, mono=True)}")
+            if sd:
+                apart = first_call_apart(jpre + jcalls, wpre + wcalls, P,
+                                         mono=True)
+                say(f"  the step's first call apart: {apart}")
+                if first_step is None:
+                    first_step = (i, apart)
+                    print(f"first frame whose single step from JAX's state "
+                          f"differs: {i}: {apart}", flush=True)
+    points = (int(jm.slam.map.valid.sum()), int(tm.slam.map.valid.sum()))
+    if record:
+        with open(record, "wb") as fh:
+            pickle.dump(dict(kw=kw, frames=rec, draws=cache.draws,
+                             points=points[0]), fh)
+        print(f"recorded {len(rec)} frames and {len(cache.draws)} draws to "
+              f"{record} ({os.path.getsize(record) / 2 ** 20:.1f} MiB)",
+              flush=True)
+    print(f"mono lockstep over {n_run} frames "
+          f"({time.perf_counter() - t0:.0f} s of this machine's CPU): "
+          + pair.summary(points)
+          + ("" if not cross_feed else
+             f"; single steps from JAX's state: "
+             + ("none differs" if first_step is None
+                else f"first apart at frame {first_step[0]} "
+                     f"({first_step[1]})")), flush=True)
+    return dict(frames=n_run, first=pair.first, first_step=first_step,
+                worst=pair.worst, keyframes=pair.kfs, lost=pair.lost,
+                points=points, relocs=pair.relocs)
+
+
+def mono_replay(path: str, device: str, stop_after=None,
+                cross_feed: bool = False) -> dict:
+    """The port on ``device`` and on the CPU, a frame at a time, on the
+    features and draws a ``mono_lockstep --record`` run wrote, each held
+    to JAX's recorded steps and the device to the CPU (``MonoPair``). With
+    ``cross_feed`` the CPU system's state is carried to ``device``
+    (``convert.mono_from_reference``) before every frame and stepped once
+    beside the CPU's step. Imports no JAX: it runs where the card is."""
+    import dataclasses
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from sindslam_tpu_torch import convert
+    from sindslam_tpu_torch.evaluation.benchmark import scaled_system_config
+    from sindslam_tpu_torch.ops import cuda_kernels as ck
+    from sindslam_tpu_torch.slam.frame import FrameData
+    from sindslam_tpu_torch.slam.mono import MonocularSystem as TMono
+
+    def say(*a):
+        print(*a, flush=True)
+
+    torch.set_num_threads(4)            # the lockstep's CPU port
+    with open(path, "rb") as fh:
+        data = pickle.load(fh)
+    kw, rec = data["kw"], data["frames"]
+    cache = DrawCache(data["draws"])
+    n_run = len(rec) if stop_after is None else min(stop_after + 1, len(rec))
+    cfg = scaled_system_config(kw["scale"], n_features=kw["n_features"])
+    cfg = convert.config_from_dict(dataclasses.asdict(cfg))
+    P = cfg.tracking.ba_max_points
+    log = install_call_log(sides=("port",))
+    install_mono_call_log(log, sides=("port",))
+    systems = {d: TMono(cfg, device=d) for d in (device, "cpu")}
+    for m in systems.values():
+        inject_draws(m, cache.lookup)
+    to_jax = MonoPair(("JAX", device), P)
+    to_cpu = MonoPair(("cpu", device), P)
+    first_step, cpu_prev = None, ([], [])
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i, r in enumerate(rec[:n_run]):
+        n = r["feats"]["xy"].shape[0]
+        host = FrameData(**r["feats"], depth=np.zeros(n, np.float32),
+                         ur=np.full(n, -1.0, np.float32), timestamp=r["t"])
+        twin, wpre = None, ([], [])
+        if cross_feed:
+            twin = convert.mono_from_reference(systems["cpu"], device)
+            inject_draws(twin, cache.lookup)
+            wpre = (list(log.args["port"]), log.take("port"))
+        out = {}
+        for d, m in systems.items():
+            v = m.slam.map._map_version
+            T, k = mono_step(m, convert.frame_from_numpy(host, d), r["t"])
+            args = list(log.args["port"])
+            out[d] = mono_state(m, log.take("port"), P,
+                                m.slam.map._map_version != v)
+            out[d].update(T=np.asarray(T, np.float64), kf=bool(k), args=args)
+        to_jax.frame(i, r, out[device], say)
+        to_cpu.frame(i, out["cpu"], out[device], lambda *a: None)
+        # the deferred stages the twin dispatched again at its making are
+        # the CPU's calls of the previous frame
+        k = len(wpre[1])
+        idx = [j for j, c in enumerate(cpu_prev[1])
+               if c[0] != "full_track_step"]
+        idx = idx[len(idx) - k:] if k else []
+        cpre = ([cpu_prev[0][j] for j in idx], [cpu_prev[1][j] for j in idx])
+        cpu_prev = (out["cpu"]["args"], out["cpu"]["calls"])
+        if twin is not None:
+            wT, wk = mono_step(twin, convert.frame_from_numpy(host, device),
+                               r["t"])
+            wargs = list(log.args["port"])
+            wcalls = log.take("port")
+            c = systems["cpu"]
+            sd = (twin.initialized != c.initialized
+                  or step_differs(c.slam, twin.slam, out["cpu"]["T"], wT,
+                                  out["cpu"]["kf"], wk, 1e-4, 5e-3))
+            if sd and first_step is None:
+                ccalls = cpre[1] + out["cpu"]["calls"]
+                first_step = (i, first_call_apart(
+                    ccalls, wpre[1] + wcalls, P, ("cpu", device), mono=True))
+                print(f"first frame whose single step on {device} from the "
+                      f"CPU's state differs: {i}: {first_step[1]}",
+                      flush=True)
+                # the parting call again, in both precisions on both devices
+                name = first_step[1].split(":")[0]
+                cargs = [a for n_, a, _k in cpre[0] + out["cpu"]["args"]
+                         if n_ == name]
+                if cargs and name == "local_bundle_adjustment":
+                    ba_on_devices(cargs[0][0], cfg, device)
+                elif cargs and name == "triangulate_with_neighbors":
+                    tri_on_devices(cargs[0], cfg, device)
+                log.take("port")          # those solves are no step's calls
+    pts = {d: int(m.slam.map.valid.sum()) for d, m in systems.items()}
+    print(f"mono replay of {path} over {n_run} frames "
+          f"({time.perf_counter() - t0:.0f} s of command time), the port on "
+          f"{device}: K1-K4 launches {dict(ck.LAUNCHES)}", flush=True)
+    print("  " + to_jax.summary((data["points"] if n_run == len(rec)
+                                 else rec[n_run - 1]["points"], pts[device])),
+          flush=True)
+    print("  " + to_cpu.summary((pts["cpu"], pts[device]))
+          + ("" if not cross_feed else
+             f"; single steps on {device} from the CPU's state: "
+             + ("none differs" if first_step is None else
+                f"first apart at frame {first_step[0]} ({first_step[1]})")),
+          flush=True)
+    return dict(to_jax=to_jax, to_cpu=to_cpu, first_step=first_step)
+
+
+def mono_own(kw: dict, device: str, repeat: int = 1,
+             deterministic: bool = False) -> list:
+    """The port's ``MonocularSystem.track`` over the orbit on ``device``
+    with its own ORB and draws, as ``mono_loop_closure_pair`` runs it with
+    loop closing on, ``repeat`` times in one process (with
+    ``deterministic``, under ``torch.use_deterministic_algorithms``): per
+    run the keyframe frames, the lost frames, the map points, the
+    keyframes and the scale-aligned keyframe ATE. Imports no JAX."""
+    import numpy as np
+    import torch
+
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+
+    from sindslam_tpu_torch.datasets.synthetic import make_orbit_sequence
+    from sindslam_tpu_torch.evaluation import evaluate_ate
+    from sindslam_tpu_torch.evaluation.benchmark import scaled_system_config
+    from sindslam_tpu_torch.ops import cuda_kernels as ck
+    from sindslam_tpu_torch.slam.mono import MonocularSystem
+
+    torch.set_num_threads(4)
+    frames, _scene = make_orbit_sequence(
+        n_frames=kw["n_frames"], scale=kw["scale"], orbits=kw["orbits"],
+        seed=kw["seed"])
+    cfg = scaled_system_config(kw["scale"], n_features=kw["n_features"])
+    gt_ts = np.array([f[4] for f in frames])
+    gt_xyz = np.stack([f[3][:3, 3] for f in frames])
+    out = []
+    for run in range(repeat):
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = MonocularSystem(cfg, device=device)
+        kfs, lost = [], []
+        for i, (rgb, _d, _dyn, _p, ts) in enumerate(frames):
+            _T, k = m.track(rgb, ts)
+            if k:
+                kfs.append(i)
+            if m.initialized and m.lost:
+                lost.append(i)
+        m.shutdown()
+        kf_ts, kf_twc = m.slam.keyframe_trajectory()
+        ate = float(evaluate_ate(gt_ts, gt_xyz, kf_ts,
+                                 np.stack([p[:3, 3] for p in kf_twc]),
+                                 with_scale=True).rmse)
+        res = dict(keyframes=kfs, lost=lost, points=int(m.slam.map.valid.sum()),
+                   n_keyframes=len(m.slam.map.keyframes), kf_ate_m=ate)
+        out.append(res)
+        print(f"the port's own ORB and draws on {device}"
+              f"{' (deterministic sums)' if deterministic else ''}, run {run}: "
+              f"keyframes at {kfs} ({res['n_keyframes']} in the map), lost "
+              f"{len(lost)} frames (first {lost[:1]}), map points "
+              f"{res['points']}, scale-aligned keyframe ATE {ate:.6f} m; "
+              f"{time.perf_counter() - t0:.0f} s of command time, K1-K4 "
+              f"launches {dict(ck.LAUNCHES)}", flush=True)
+    return out
+
+
+def ba_on_devices(problem, cfg, device: str) -> None:
+    """One local BA problem of the port solved in float32 and float64 on
+    the CPU and on ``device``: how far the free keyframes' camera centres
+    of each solve lie from the CPU's float64 one (map units for mono)."""
+    import numpy as np
+    import torch
+
+    from sindslam_tpu_torch.slam import ba as t_ba
+
+    data = {f: getattr(problem, f).cpu() for f in problem._fields}
+    free = ~data["fixed_mask"].numpy()
+    sol = {}
+    for d in ("cpu", device):
+        for dt in (torch.float32, torch.float64):
+            p = problem._replace(**{f: (x.to(d, dt) if x.is_floating_point()
+                                        else x.to(d))
+                                    for f, x in data.items()})
+            r = t_ba.local_bundle_adjustment(p, cfg.camera, cfg.tracking)
+            T = r.poses.double().cpu().numpy()[free]
+            sol[(d, dt)] = np.linalg.inv(T)[:, :3, 3]
+    ref = sol[("cpu", torch.float64)]
+
+    def gap(key):
+        return float(np.linalg.norm(sol[key] - ref, axis=1).max())
+
+    f32 = float(np.linalg.norm(sol[("cpu", torch.float32)]
+                               - sol[(device, torch.float32)], axis=1).max())
+    print(f"  that local BA problem ({int(free.sum())} free keyframes) from "
+          f"the CPU's float64 solve: {device} float64 "
+          f"{gap((device, torch.float64)):.3g}, CPU float32 "
+          f"{gap(('cpu', torch.float32)):.3g}, {device} float32 "
+          f"{gap((device, torch.float32)):.3g} (map units); the two float32 "
+          f"solves {f32:.3g} apart", flush=True)
+
+
+def tri_on_devices(args, cfg, device: str) -> None:
+    """One triangulation of the port (``triangulate_with_neighbors``'s
+    arguments) in float32 and float64 on the CPU and on ``device``: how far
+    each solve's points lie from the CPU's float64 ones, over the points
+    every solve accepts, and the accept flags apart."""
+    import numpy as np
+    import torch
+
+    from sindslam_tpu_torch.slam import triangulation as t_tri
+
+    def to(x, d, dt):
+        if isinstance(x, torch.Tensor):
+            return x.to(d, dt) if x.is_floating_point() else x.to(d)
+        if hasattr(x, "_fields"):
+            return x._replace(**{f: to(getattr(x, f), d, dt)
+                                 for f in x._fields if f != "timestamp"})
+        return x
+
+    out = {}
+    for d in ("cpu", device):
+        for dt in (torch.float32, torch.float64):
+            out[(d, dt)] = t_tri.triangulate_with_neighbors(
+                *(to(a, d, dt) for a in args[:8]), cfg.camera,
+                cfg.tracking).double().cpu().numpy()
+    ref = out[("cpu", torch.float64)]
+    ok = np.all([o[:, 3] > 0 for o in out.values()], axis=0)
+
+    def gap(key):
+        return float(np.abs(out[key][ok, :3] - ref[ok, :3]).max())
+
+    flips = sum(int((o[:, 3] != ref[:, 3]).sum()) for o in out.values())
+    print(f"  that triangulation ({int(ok.sum())} points every solve "
+          f"accepts, accept flags apart {flips}) from the CPU's float64 "
+          f"solve: {device} float64 {gap((device, torch.float64)):.3g}, CPU "
+          f"float32 {gap(('cpu', torch.float32)):.3g}, {device} float32 "
+          f"{gap((device, torch.float32)):.3g} (map units)", flush=True)
+
+
+def ransac_models_f32(p1, p2, valid, gumbel, sigma: float = 1.0):
+    """The port's initializer RANSAC (``initializer._ransac_models``) with
+    every step in float32, as the JAX package runs it: a probe of what the
+    port's float64 scoring changes, for ``--mono --init-f32`` only."""
+    import torch
+
+    from sindslam_tpu_torch.slam import initializer as ti
+
+    p1n, T1 = ti._normalize(p1, valid)
+    p2n, T2 = ti._normalize(p2, valid)
+    logw = torch.log(valid.to(torch.float32) + 1e-12)
+    idx = torch.topk(gumbel + logw[None], 8, dim=-1).indices
+    s1, s2 = p1n[idx], p2n[idx]
+    Hs, Fs = ti._dlt_homography(s1, s2), ti._eight_point_f(s1, s2)
+    inv_s2 = 1.0 / (sigma * sigma)
+    a1, a2 = T1[0, 0] * T1[1, 1], T2[0, 0] * T2[1, 1]
+
+    def h_chi2(H):
+        e12, e21 = ti._h_transfer_err(H, p1n, p2n)
+        return e21 / a1 * inv_s2, e12 / a2 * inv_s2
+
+    def f_chi2(F):
+        e1, e2 = ti._f_epipolar_err(F, p1n, p2n)
+        return e1 / a1 * inv_s2, e2 / a2 * inv_s2
+
+    def score(chi2, th):
+        def fn(M):
+            c1, c2 = chi2(M)
+            return (torch.where((c1 < th) & valid, ti._TH_H - c1, 0.0)
+                    + torch.where((c2 < th) & valid, ti._TH_H - c2, 0.0)
+                    ).sum(-1)
+        return fn
+
+    score_h, score_f = score(h_chi2, ti._TH_H), score(f_chi2, ti._TH_F)
+    sh, sf = score_h(Hs), score_f(Fs)
+    bh, bf = torch.argmax(sh), torch.argmax(sf)
+    c1, c2 = h_chi2(Hs[bh])
+    Hn = ti._dlt_homography(p1n, p2n, ((c1 < ti._TH_H) & (c2 < ti._TH_H)
+                                       & valid).float())
+    c1, c2 = f_chi2(Fs[bf])
+    Fn = ti._eight_point_f(p1n, p2n, ((c1 < ti._TH_F) & (c2 < ti._TH_F)
+                                      & valid).float())
+    Hn = torch.where(score_h(Hn) >= sh[bh], Hn, Hs[bh])
+    Fn = torch.where(score_f(Fn) >= sf[bf], Fn, Fs[bf])
+    sh_best = torch.maximum(score_h(Hn), sh[bh])
+    sf_best = torch.maximum(score_f(Fn), sf[bf])
+    H = torch.linalg.inv(T2) @ Hn @ T1
+    F = T2.T @ Fn @ T1
+    eh12, eh21 = ti._h_transfer_err(H, p1, p2)
+    inl_h = (eh12 * inv_s2 < ti._TH_H) & (eh21 * inv_s2 < ti._TH_H) & valid
+    ef1, ef2 = ti._f_epipolar_err(F, p1, p2)
+    inl_f = (ef1 * inv_s2 < ti._TH_F) & (ef2 * inv_s2 < ti._TH_F) & valid
+    return H, sh_best, inl_h, F, sf_best, inl_f
+
+
 def lm_trace(ba, xp, problem, cam, cfg, lam0, to_lam):
     """The two-stage robust LM of ``local_bundle_adjustment`` written out
     step by step over one package's own functions (``ba`` its module,
@@ -629,6 +1331,8 @@ def bisect_ba(path: str, scale: float, n_features: int) -> None:
     data = {k: v for k, v in data.items() if not k.startswith("kw_")}
     if os.path.basename(path).startswith("gba"):
         return bisect_gba(data, kw, cfg, tcfg, path)
+    if os.path.basename(path).startswith("tri"):
+        return bisect_tri(data, cfg, tcfg, path)
     jp = j_ba.BAProblem(**{k: jnp.asarray(v) for k, v in data.items()})
     tp = convert.ba_problem_from_numpy(types_ns(data), "cpu")
     tp64 = tp._replace(poses=tp.poses.double(), points=tp.points.double(),
@@ -975,6 +1679,74 @@ def bisect_gba(data: dict, kw: dict, cfg, tcfg, path: str) -> None:
               f"{g[1]:.4g} deg", flush=True)
 
 
+def triangulate_both(data: dict, cfg, tcfg, dtype):
+    """One dumped triangulation through both packages with every float
+    input in ``dtype``: the packed (N, 4) outputs [x, y, z, ok] of JAX and
+    of the port, as float64 numpy."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from sindslam_tpu.slam import frame as j_frame
+    from sindslam_tpu.slam import triangulation as j_tri
+    from sindslam_tpu_torch import convert
+    from sindslam_tpu_torch.slam import triangulation as t_tri
+
+    def cast(v):
+        return v.astype(dtype) if v.dtype == np.float32 else v
+
+    d = {k: cast(v) for k, v in data.items()}
+    fields = ("xy", "level", "angle", "desc", "valid", "depth", "ur")
+    with jax.enable_x64(dtype == np.float64):
+        cur = j_frame.FrameData(*(jnp.asarray(d[f"cur_{f}"]) for f in fields),
+                                0.0)
+        jo = np.asarray(j_tri.triangulate_with_neighbors(
+            cur, *(jnp.asarray(d[k]) for k in TRI_ARGS), cfg.camera,
+            cfg.tracking), np.float64)
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
+    tcur = convert.frame_from_numpy(types_ns(
+        {f: data[f"cur_{f}"] for f in fields} | {"timestamp": 0.0}), "cpu")
+    tcur = tcur._replace(xy=tcur.xy.to(tdt), angle=tcur.angle.to(tdt))
+
+    def t(k):
+        v = np.array(d[k])
+        x = torch.from_numpy(v.view(np.int32) if v.dtype == np.uint32 else v)
+        return x.to(tdt) if x.is_floating_point() else x
+
+    to = t_tri.triangulate_with_neighbors(
+        tcur, *(t(k) for k in TRI_ARGS), tcfg.camera, tcfg.tracking)
+    return jo, to.double().numpy()
+
+
+def bisect_tri(data: dict, cfg, tcfg, path: str) -> None:
+    """A dumped triangulation through both packages in float32 and in
+    float64: the accepted points each pair of solves shares, how far apart
+    their positions are (map units for mono), the accept flags apart, and
+    the smallest two-ray parallax term ``1 - cos^2`` among the points that
+    part most (the midpoint's divisor)."""
+    import numpy as np
+
+    j32, t32 = triangulate_both(data, cfg, tcfg, np.float32)
+    j64, t64 = triangulate_both(data, cfg, tcfg, np.float64)
+    print(f"{os.path.basename(path)}: triangulation of {len(j32)} keypoints "
+          f"against {data['nbr_xy'].shape[0]} neighbour(s), accepted JAX "
+          f"{int(j32[:, 3].sum())} / port {int(t32[:, 3].sum())} in float32, "
+          f"{int(j64[:, 3].sum())} / {int(t64[:, 3].sum())} in float64",
+          flush=True)
+    for name, (a, b) in (("JAX / port in float32", (j32, t32)),
+                         ("JAX / port in float64", (j64, t64)),
+                         ("JAX float32 / float64", (j32, j64)),
+                         ("port float32 / float64", (t32, t64))):
+        both = (a[:, 3] > 0) & (b[:, 3] > 0)
+        d = np.abs(a[both, :3] - b[both, :3]).max(axis=1) if both.any() \
+            else np.zeros(1)
+        print(f"  {name}: accept flags apart {int((a[:, 3] != b[:, 3]).sum())}"
+              f", positions of the {int(both.sum())} points both accept up "
+              f"to {d.max():.3e} apart (median {np.median(d):.3e})",
+              flush=True)
+
+
 def types_ns(d: dict):
     import types
 
@@ -989,8 +1761,10 @@ def report(who: str, r: dict) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--frames", type=int, default=240)
-    ap.add_argument("--orbits", type=float, default=1.0)
+    ap.add_argument("--frames", type=int, default=None,
+                    help="240, or 260 with --mono")
+    ap.add_argument("--orbits", type=float, default=None,
+                    help="1.0, or 1.25 with --mono")
     ap.add_argument("--tpu-brief", action="store_true",
                     help="run JAX with the BRIEF of its TPU path")
     ap.add_argument("--port", action="store_true",
@@ -998,6 +1772,29 @@ def main() -> int:
     ap.add_argument("--lockstep", action="store_true",
                     help="instead, step both SlamSystems frame by frame on "
                          "JAX's features and draws (loop closing on)")
+    ap.add_argument("--mono", action="store_true",
+                    help="the lockstep of the two MonocularSystems on "
+                         "mono_loop_closure_pair's orbit")
+    ap.add_argument("--record", metavar="FILE", default=None,
+                    help="with --mono, write JAX's features, steps, calls "
+                         "and draws to FILE for --replay")
+    ap.add_argument("--replay", metavar="FILE", default=None,
+                    help="instead, step the port on --device and on the CPU "
+                         "on a --record file and hold both to JAX's steps "
+                         "(imports no JAX)")
+    ap.add_argument("--device", default="cpu",
+                    help="the device of the port in --replay and --own "
+                         "(cuda)")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="with --own, under torch.use_deterministic_"
+                         "algorithms (warn only)")
+    ap.add_argument("--own", type=int, default=0, metavar="N",
+                    help="instead, run the port's own MonocularSystem "
+                         "(its ORB and draws) over the orbit N times on "
+                         "--device (imports no JAX)")
+    ap.add_argument("--init-f32", action="store_true",
+                    help="with --mono, run the port's initializer RANSAC "
+                         "in float32 (a probe)")
     ap.add_argument("--stop-after", type=int, default=None, metavar="N",
                     help="end the lockstep after frame N")
     ap.add_argument("--cross-feed", action="store_true",
@@ -1019,8 +1816,18 @@ def main() -> int:
                     help="instead, take each dumped BA problem through both "
                          "packages iteration by iteration")
     args = ap.parse_args()
-    kw = dict(n_frames=args.frames, scale=0.5, n_features=800,
-              orbits=args.orbits, seed=0)
+    mono = args.mono or bool(args.own)
+    kw = dict(n_frames=args.frames or (260 if mono else 240),
+              scale=0.5, n_features=800,
+              orbits=args.orbits or (1.25 if mono else 1.0), seed=0)
+    if args.own:
+        mono_own(kw, args.device, repeat=args.own,
+                 deterministic=args.deterministic)
+        return 0
+    if args.replay:
+        mono_replay(args.replay, args.device, stop_after=args.stop_after,
+                    cross_feed=args.cross_feed)
+        return 0
 
     import jax
 
@@ -1038,6 +1845,14 @@ def main() -> int:
     if args.bisect_ba:
         for path in args.bisect_ba:
             bisect_ba(path, kw["scale"], kw["n_features"])
+        return 0
+    if args.mono:
+        mono_lockstep(kw, stop_after=args.stop_after,
+                      cross_feed=args.cross_feed or bool(args.cross_feed_at),
+                      pending=args.pending, init_f32=args.init_f32,
+                      dump_dir=args.dump_ba, record=args.record,
+                      cross_feed_at=(None if args.cross_feed_at is None
+                                     else set(args.cross_feed_at)))
         return 0
     if args.lockstep:
         lockstep(kw, stop_after=args.stop_after,
