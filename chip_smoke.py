@@ -113,11 +113,18 @@
    pairs (seed 7) with ``tests/test_stereo.py``'s limits (metric ATE under
    0.08 m, stereo depth against the render); holds ``stereo_match`` of one
    pair on the card against the CPU;
-16. runs ``batch_frontend_step`` on 4 pairs of the phase-3 frames and
+16. runs ``batch_frontend_step`` on 4 pairs of the phase-3 frames (one
+   program over the 4 lanes: each of K1-K4 one call for all of them) and
    ``batch_temporal_frontend`` on 2 lanes x 4 frames, each with the counters
    zeroed before and read after, under deterministic sums, and holds each
-   lane equal to the same pair or window run alone on the card; prints ms
-   per pair and per frame;
+   lane equal to the same pair or window run alone on the card and the
+   batched step's K1-K4 wrapper calls equal to one pair's (its CUDA
+   launches printed beside them); holds each batched kernel call, its
+   inputs recorded at one call site each, bit for bit to its plain version
+   on the card, and times both beside its bound; times the batched call
+   against the loop of ``single_pair`` over its lanes at B = 4 and 8 (the
+   second call of each, in turns) and prints ms a pair and peak device
+   memory;
 17. runs the multi-device paths over a process group of
    ``torch.cuda.device_count()`` ranks on NCCL, one process a card
    (``parallel/launch.py``'s ``spawn``), and prints the world size:
@@ -146,7 +153,8 @@
 19. prints a ``{"kernels_off_main_path": [...]}`` line for the standalone
    patch gather (the main path reaches its loader only through the fused
    BRIEF kernel, so its launch count there is 0), a ``{"kernels": [...]}``
-   line for the kernels the main path launches, then as its last line
+   line for the kernels the main path launches (each with its batched
+   call's figures from phase 16 under ``batched``), then as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero; it also exits
@@ -342,6 +350,51 @@ def bound_ms(n_bytes: float, n_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# FAST's operations a pixel: 16 ring differences; minima and maxima over the
+# 16 runs of 9 by doubling (runs of 2, 4, 8, 9), 64 min and 64 max; the best
+# start, 16 max and 16 min; negate and join the polarities, threshold and
+# priority, 7; 8 neighbour maxima, compare and select, 10.
+FAST_OPS = 16 + 64 + 64 + 32 + 7 + 10
+
+
+def lane_work(torch, name, args, kw, needed=None):
+    """(bytes, operations) the call of kernel ``name`` on ``args`` needs
+    for one image (a lane of a stack is one call's worth), the counts
+    behind its bound. K1: the 10 fields read and (du, dv) written; per
+    pixel and re-weighting ~150 operations (robust weights, the smoothness
+    weight, 2x2 system, folded terms), per pixel and sweep ~42. K2: the mask
+    and the cluster image read once, the labels written once; per pixel and
+    sweep 4 masked neighbour minima and keep/select, ~10, over the
+    ``needed`` sweeps this input takes to its fixed point. K3: the levels'
+    pixels read, the whole atlas written, FAST_OPS a level pixel. K4: the
+    image pixels the windows touch and the corners read, the windows
+    written; fused with BRIEF, also the table rows of the bins used and the
+    bins read, 32 bytes of descriptor written, 256 compares a keypoint."""
+    if name == "sor_inner":
+        px = args[0].shape[-2] * args[0].shape[-1]
+        return 12 * px * 4, px * kw["inner"] * (150 + 42 * kw["sweeps"])
+    if name == "cc_labels":
+        _seed, mask, labels = args
+        px = mask.shape[-2] * mask.shape[-1]
+        n_bytes = px * (mask.element_size() + 4
+                        + (0 if labels is mask else labels.element_size()))
+        return n_bytes, 10 * px * max(needed, 1)
+    if name == "fast_nms":
+        n_px = sum(lh * lw for _y0, lh, lw in kw["levels"])
+        return (n_px + args[0].shape[-2] * args[0].shape[-1]) * 4, \
+            FAST_OPS * n_px
+    img, y0, x0 = args[:3]
+    P, n = 28, y0.shape[-1]
+    touched = torch.zeros_like(img, dtype=torch.bool)
+    for yy, xx in zip(y0.tolist(), x0.tolist()):
+        touched[yy:yy + P, xx:xx + P] = True
+    img_bytes = int(touched.sum()) * 4
+    if name == "extract_patches":
+        return img_bytes + 2 * n * 4 + n * P * P * 4, 0
+    return (img_bytes + len(torch.unique(args[3])) * 512 * 4 + 3 * n * 4
+            + n * 32, n * 256)
+
+
 def busy_us(events) -> float:
     """Length of the union of the device events' intervals."""
     busy, cur_s, cur_e = 0.0, None, None
@@ -393,7 +446,7 @@ class Recorder:
             if name == "cc_labels":     # the main path passes it by keyword
                 key = f"cc_labels/{kw['n_sweeps']}"
             elif name == "sor_inner":
-                key = "sor_inner/%dx%d" % tuple(args[0].shape)
+                key = "sor_inner/%dx%d" % tuple(args[0].shape[-2:])
             size = args[1 if name == "cc_labels" else 0].numel()
             if name == "brief_from_patches":
                 size += args[1].numel()
@@ -1779,13 +1832,84 @@ def phase_stereo(torch, dev) -> None:
           f"within {out['ur_err']:.3g} px", flush=True)
 
 
+BATCH_SITES = (("sor_inner", "sor_inner/288x384"),
+               ("cc_labels", "cc_labels/768"),
+               ("fast_nms", "fast_nms"),
+               ("brief_from_patches", "brief_from_patches"))
+
+
+def lanes_of(torch, name, args, b):
+    """Lane b of a recorded batched call's arguments: every tensor but the
+    BRIEF table, which the lanes share; a tensor passed twice stays one."""
+    laned = args[:4] if name == "brief_from_patches" else args
+    memo = {id(a): a[b] for a in laned if isinstance(a, torch.Tensor)}
+    return [memo.get(id(a), a) for a in args]
+
+
+def batched_kernels(torch, ck, rec, n_lanes, counts):
+    """Phase 16: each kernel's batched call as the batched step made it (the
+    inputs recorded at one call site each: K1 at the finest level, K2 in
+    the region merge, K3 on the stack of atlases, the fused K4), on the card
+    against its plain version on the same inputs, bit for bit; times both
+    and bounds the call by the sum over its lanes of ``lane_work``."""
+    out = {}
+    for name, key in BATCH_SITES:
+        _rank, args, kw = rec.calls[key]
+        lead = args[1 if name == "cc_labels" else 0].shape
+        check(len(lead) == 3 and lead[0] == n_lanes,
+              f"{key}: the batched step gave the kernel {tuple(lead)}")
+        kern, plain = rec.saved[name], getattr(ck, name + "_plain")
+        got, ref = kern(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        check(all(g.shape == r.shape and torch.equal(g, r)
+                  for g, r in zip(got, ref)),
+              f"batched {key} on the card is not its plain version bit for "
+              f"bit")
+        work = [0, 0]
+        for b in range(n_lanes):
+            lane = lanes_of(torch, name, args, b)
+            needed = None
+            if name == "cc_labels":    # the sweeps this lane needs
+                full = kern(*lane, **kw)
+                lo, hi = 0, kw["n_sweeps"]
+                while lo < hi:
+                    mid = (lo + hi) // 2
+                    if torch.equal(kern(lane[0], lane[1], lane[2],
+                                        n_sweeps=mid), full):
+                        hi = mid
+                    else:
+                        lo = mid + 1
+                needed = lo
+            nb, nop = lane_work(torch, name, lane, kw, needed)
+            work[0] += nb
+            work[1] += nop
+        bound = bound_ms(*work)
+        ms = time_ms(torch, lambda: kern(*args, **kw), 20)
+        plain_ms = time_ms(torch, lambda: plain(*args, **kw), 2)
+        out[name] = dict(lanes=n_lanes, launches=counts[name], max_abs_err=0.0,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                         bound_by=bound[1])
+        print(f"batched {key} {tuple(args[1 if name == 'cc_labels' else 0].shape)}: "
+              f"kernel == plain bit for bit; {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {bound[0]:.5f} ms ({bound[1]}, the {n_lanes} lanes' "
+              f"work), {counts[name]} wrapper call(s) in the batched step",
+              flush=True)
+    return out
+
+
 def phase_batch(torch, dev, cfg, rgbs, depths):
     """Phase 16: ``batch_frontend_step`` on pairs of the phase-3 frames
     (``rgbs``, ``depths`` on ``dev``) and ``batch_temporal_frontend`` on
     lanes of them, the counts zeroed before each and read after; each lane
-    against the same pair or window run alone. Deterministic sums, so that
-    a lane and its single run can be equal. Returns both paths' outputs,
-    which phase 17 holds its sharded lanes to."""
+    against the same pair or window run alone, and the step's kernel calls
+    against one pair's. Deterministic sums, so that a lane and its single
+    run can be equal. Each batched kernel call against its plain version
+    (``batched_kernels``); the batched call against the loop of
+    ``single_pair`` at B = 4 and 8, ms a pair and peak memory. Returns both
+    paths' outputs, which phase 17 holds its sharded lanes to, and the
+    batched kernels' figures."""
     from sindslam_tpu_torch.frontend import pipeline as fp
     from sindslam_tpu_torch.frontend.flow_mask import n_grid_samples
     from sindslam_tpu_torch.ops import cuda_kernels as ck
@@ -1793,6 +1917,13 @@ def phase_batch(torch, dev, cfg, rgbs, depths):
     from sindslam_tpu_torch.ops.homography import gumbel_draws
     from sindslam_tpu_torch.parallel import batch_frontend as bf
 
+    def cuda_launches():
+        return {"sor_inner": sum(c[1] for c in
+                                 ck.SOR_INNER_CUDA_LAUNCHES.values()),
+                "cc_labels": sum(c[1] for c in
+                                 ck.CC_LABELS_CUDA_LAUNCHES.values())}
+
+    n_lanes = len(BATCH_PAIRS)
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         n_s = n_grid_samples(cfg.camera.height, cfg.camera.width, cfg.dyna)
@@ -1805,19 +1936,25 @@ def phase_batch(torch, dev, cfg, rgbs, depths):
         ck.reset_launch_counts()
         gen.manual_seed(0)
         t0 = time.perf_counter()
-        masks, labels, feats = step(rgb_b, prev_b, depth_b, generator=gen)
+        with Recorder(torch, ck) as rec:
+            masks, labels, feats = step(rgb_b, prev_b, depth_b, generator=gen)
         sync(torch, dev)
-        batch_ms = 1e3 * (time.perf_counter() - t0) / len(BATCH_PAIRS)
+        batch_ms = 1e3 * (time.perf_counter() - t0) / n_lanes
         batch_counts = dict(ck.LAUNCHES)
+        batch_cuda = cuda_launches()
         gen.manual_seed(0)
-        for b in range(len(BATCH_PAIRS)):
+        for b in range(n_lanes):
             g = gumbel_draws(cfg.dyna.ransac_iters, n_s, gen, dev)
+            ck.reset_launch_counts()
             m, lab, f = bf.single_pair(rgb_b[b], prev_b[b], depth_b[b], g, cfg)
+            if b == 0:
+                pair_counts, pair_cuda = dict(ck.LAUNCHES), cuda_launches()
             check(torch.equal(masks[b], m) and torch.equal(labels[b], lab)
                   and all(torch.equal(x[b], y) for x, y in zip(feats, f)),
                   f"batch_frontend_step: lane {b} differs from its pair run "
                   f"alone")
         dyn = [int((m == cfg.dyna.mask_dynamic).sum()) for m in masks]
+        kernels = batched_kernels(torch, ck, rec, n_lanes, batch_counts)
 
         run = bf.batch_temporal_frontend(cfg, device=dev)
         rgb_t = torch.stack([torch.stack([rgbs[i] for i in lane])
@@ -1844,19 +1981,72 @@ def phase_batch(torch, dev, cfg, rgbs, depths):
     finally:
         torch.use_deterministic_algorithms(False)
     print(f"batched front-end (deterministic sums): batch_frontend_step on "
-          f"B = {len(BATCH_PAIRS)} pairs {list(BATCH_PAIRS)} of dyn_walk at "
+          f"B = {n_lanes} pairs {list(BATCH_PAIRS)} of dyn_walk at "
           f"640x480, each lane equal to its pair run alone, dynamic pixels "
           f"per lane {dyn}, {batch_ms:.1f} ms a pair (host clock, synchronize "
-          f"to synchronize, the first call), K1-K4 launches {batch_counts}; "
+          f"to synchronize, the first call), K1-K4 wrapper calls "
+          f"{batch_counts} (one pair alone: {pair_counts}), CUDA launches of "
+          f"K1 and K2 {batch_cuda} (one pair alone: {pair_cuda}); "
           f"batch_temporal_frontend on {len(TEMPORAL_LANES)} lanes x "
           f"{len(TEMPORAL_LANES[0])} frames, each lane equal to frontend_step "
           f"run alone, {temporal_ms:.1f} ms a frame, K1-K4 launches "
           f"{temporal_counts}", flush=True)
     for name in MAIN_PATH:
-        check(batch_counts[name] > 0 and temporal_counts[name] > 0,
-              f"kernel {name} never launched in the batched front-end")
+        check(batch_counts[name] == pair_counts[name] > 0,
+              f"the batched step made {batch_counts[name]} {name} call(s) "
+              f"for {n_lanes} pairs, one pair {pair_counts[name]}")
+        check(temporal_counts[name] > 0,
+              f"kernel {name} never launched in batch_temporal_frontend")
     check(max(dyn) > 0, "batched front-end: no dynamic pixel in any lane")
-    return (masks, labels, feats), (masks_t, large_t, nf_t)
+
+    # the batched call against the loop over its lanes, in one process: the
+    # second call of each, synchronize to synchronize, in turns
+    gen.manual_seed(0)
+    draws = [gumbel_draws(cfg.dyna.ransac_iters, n_s, gen, "cpu")
+             for _ in BATCH_PAIRS]
+
+    def timed(fn):
+        fn()
+        sync(torch, dev)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fn()
+        sync(torch, dev)
+        return (1e3 * (time.perf_counter() - t0),
+                torch.cuda.max_memory_allocated() / 2 ** 20)
+
+    speed = {}
+    for n in (4, 8):
+        idx = [i % n_lanes for i in range(n)]
+        rgb_n, prev_n, depth_n = rgb_b[idx], prev_b[idx], depth_b[idx]
+        gum = torch.stack([draws[i] for i in idx])
+
+        def batched():
+            return step(rgb_n, prev_n, depth_n, gumbel=gum)
+
+        def looped():
+            return [bf.single_pair(rgb_n[i], prev_n[i], depth_n[i],
+                                   gum[i].to(dev), cfg) for i in range(n)]
+
+        runs = [("looped", looped), ("batched", batched),
+                ("batched", batched), ("looped", looped)]
+        got = {"batched": [], "looped": []}
+        for label, fn in runs:
+            got[label].append(timed(fn))
+        speed[n] = {k: (statistics.mean(ms for ms, _mem in v) / n,
+                        max(mem for _ms, mem in v)) for k, v in got.items()}
+        print(f"batched front-end at B = {n} (phase 16's pairs cycled): "
+              f"batch_frontend_step {speed[n]['batched'][0]:.1f} ms a pair, "
+              f"the loop of {n} single_pair calls "
+              f"{speed[n]['looped'][0]:.1f} ms a pair (host clock, the second "
+              f"call of each, synchronize to synchronize, looped, batched, "
+              f"batched, looped: "
+              f"{[round(ms / n, 1) for ms, _m in got['looped'][:1] + got['batched'] + got['looped'][1:]]}"
+              f" ms a pair); peak device memory "
+              f"(torch.cuda.max_memory_allocated) batched "
+              f"{speed[n]['batched'][1]:.0f} MiB, looped "
+              f"{speed[n]['looped'][1]:.0f} MiB", flush=True)
+    return (masks, labels, feats), (masks_t, large_t, nf_t), kernels
 
 
 def seeded_gba_problem(np, cam, n_kf: int, n_pts: int, per_point: int,
@@ -2333,14 +2523,9 @@ def main() -> int:
         check(n_cuda == (1 if one_block else kw["inner"]) and n_cuda <= 10,
               f"{key}: {n_cuda} CUDA launches a call")
         if (h, w) == levels[0]:
-            px = h * w
-            # per pixel and re-weighting ~150 ops (robust weights, the
-            # smoothness weight, 2x2 system, folded terms); per pixel and
-            # sweep ~42
-            ops = px * kw["inner"] * (150 + 42 * kw["sweeps"])
-            results["sor_inner"] = dict(err=err, ms=ms, plain_ms=pms,
-                                        shape=(h, w),
-                                        bound=bound_ms(12 * px * 4, ops))
+            results["sor_inner"] = dict(
+                err=err, ms=ms, plain_ms=pms, shape=(h, w),
+                bound=bound_ms(*lane_work(torch, "sor_inner", args, kw)))
         else:
             results["sor_inner"]["err"] = max(results["sor_inner"]["err"], err)
 
@@ -2399,7 +2584,7 @@ def main() -> int:
                                   mask.to(torch.int32),
                                   labels.to(torch.int32), n_sweeps=n_sw), ref),
               f"{key}: explicit seed and int32 mask disagree with plain")
-        n_cuda = k2_plan(h, w, n_sw)
+        n_cuda = k2_plan(h, w, n_sw, 1)
         ck.reset_launch_counts()
         k2_kern(*args, **kw)
         check(ck.CC_LABELS_CUDA_LAUNCHES[(h, w, n_sw)] == [1, n_cuda],
@@ -2415,16 +2600,13 @@ def main() -> int:
               f"{'more than ' + str(n_sw) if fixed is None else fixed} "
               f"sweeps of the {n_sw} allowed", flush=True)
         errs.append(err)
-        # per pixel and sweep: 4 masked neighbour mins + keep/select ~10
-        # ops, over the sweeps this input needs; the mask and the cluster
-        # image read once, the labels written once
         needed = n_sw if fixed is None else fixed
-        n_bytes = h * w * (mask.element_size() + 4
-                           + (0 if labels is mask else labels.element_size()))
         k2[key] = dict(args=args, ms=ms, plain_ms=pms, dev_us=dev_t,
                        n_cuda=n_cuda, fixed=fixed,
-                       bound=bound_ms(n_bytes, 10 * h * w * max(needed, 1)),
-                       bound_budget=bound_ms(n_bytes, 10 * h * w * n_sw))
+                       bound=bound_ms(*lane_work(torch, "cc_labels", args, kw,
+                                                 needed)),
+                       bound_budget=bound_ms(*lane_work(torch, "cc_labels",
+                                                        args, kw, n_sw)))
     _seed0, mask, labels = k2["cc_labels/768"]["args"]
     for n_sw in (5, 37):    # under one launch's sweeps, and a remainder
         check(torch.equal(k2_kern(None, mask, labels, n_sweeps=n_sw),
@@ -2464,7 +2646,7 @@ def main() -> int:
               f"cc_labels serpentine {h}x{w} at {n_sw} sweeps")
         ms = time_ms(torch, lambda: k2_kern(None, full, full, n_sweeps=n_sw),
                      20)
-        n_cuda = k2_plan(h, w, n_sw)
+        n_cuda = k2_plan(h, w, n_sw, 1)
         dev_sum, dev_n, dev_t = device_us_expecting(
             torch, lambda: k2_kern(None, full, full, n_sweeps=n_sw),
             "cc_tile_kernel", n_cuda, f"serpentine {h}x{w}")
@@ -2520,21 +2702,14 @@ def main() -> int:
         torch, lambda: k3_kern(level0, *args[1:]), "fast_nms_kernel", 1,
         "fast_nms level 0")
     n_px = sum(lh * lw for _y0, lh, lw in layout)
-    # what the function needs a pixel: 16 ring differences; minima and maxima
-    # over the 16 runs of 9 by doubling (runs of 2, 4, 8, 9), 64 min and 64
-    # max; the best start, 16 max and 16 min; negate and join the polarities,
-    # threshold and priority, 7; 8 neighbour maxima, compare and select, 10.
-    # Bytes: the levels' pixels read, the whole output written.
-    fast_ops = 16 + 64 + 64 + 32 + 7 + 10
-    results["fast_nms"] = dict(err=err, ms=ms, plain_ms=pms,
-                               shape=tuple(atlas.shape),
-                               bound=bound_ms((n_px + atlas.numel()) * 4,
-                                              fast_ops * n_px))
-    bound0 = bound_ms(2 * 480 * 640 * 4, fast_ops * 480 * 640)
+    results["fast_nms"] = dict(
+        err=err, ms=ms, plain_ms=pms, shape=tuple(atlas.shape),
+        bound=bound_ms(*lane_work(torch, "fast_nms", args, kw)))
+    bound0 = bound_ms(2 * 480 * 640 * 4, FAST_OPS * 480 * 640)
     print(f"fast_nms: atlas call {ms:.4f} ms, {k3_us:.1f} us of device time "
           f"in {k3_n:.0f} launch, {n_px} pixels in {len(layout)} levels, "
           f"bound {results['fast_nms']['bound'][0]:.5f} ms "
-          f"({results['fast_nms']['bound'][1]}, {fast_ops} operations a "
+          f"({results['fast_nms']['bound'][1]}, {FAST_OPS} operations a "
           f"pixel); level 0 alone (480x640) {ms0:.4f} ms, {us0:.1f} us of "
           f"device time, plain {plain0:.4f} ms, bound {bound0[0]:.5f} ms "
           f"({bound0[1]})", flush=True)
@@ -2561,14 +2736,9 @@ def main() -> int:
     chain_ms = time_ms(torch, chain, 20)
     print(f"brief_from_patches chain of PyTorch calls (unfold + index, table"
           f" lookup, gather, compare, pack): {chain_ms:.4f} ms", flush=True)
-    touched = torch.zeros_like(img, dtype=torch.bool)
-    for yy, xx in zip(y0.tolist(), x0.tolist()):
-        touched[yy:yy + P, xx:xx + P] = True
-    img_bytes = int(touched.sum()) * 4
-    table_bytes = len(torch.unique(bins)) * 512 * 4
     results["brief_from_patches"] = dict(
         err=err, ms=ms, plain_ms=pms, shape=(n, 8), library_ms=chain_ms,
-        bound=bound_ms(img_bytes + table_bytes + 3 * n * 4 + n * 32, n * 256))
+        bound=bound_ms(*lane_work(torch, "brief_from_patches", args, kw)))
     # what one call of brief_from_patches launches and allocates
     torch.cuda.synchronize()
     ck.reset_launch_counts()
@@ -2606,7 +2776,8 @@ def main() -> int:
           flush=True)
     results["extract_patches"] = dict(
         err=err, ms=ms, plain_ms=pms, shape=(n, P, P), library_ms=lib_ms,
-        bound=bound_ms(img_bytes + 2 * n * 4 + n * P * P * 4, 0))
+        bound=bound_ms(*lane_work(torch, "extract_patches", [img, y0, x0],
+                                  {})))
 
     lap("phase 3, kernels against plain versions")
     # ---- 4. the CUDA path against the port's CPU path on a small input
@@ -2686,9 +2857,9 @@ def main() -> int:
     check(set(k2_shapes) == {(240, 320, 768), (120, 160, 256)},
           f"cc_labels ran at {sorted(k2_shapes)}")
     for (h, w, n_sw), (calls, n_cuda) in k2_shapes.items():
-        check(calls == N_FRAMES and n_cuda == calls * k2_plan(h, w, n_sw),
+        check(calls == N_FRAMES and n_cuda == calls * k2_plan(h, w, n_sw, 1),
               f"cc_labels at {(h, w, n_sw)}: {calls} calls, {n_cuda} CUDA "
-              f"launches, {k2_plan(h, w, n_sw)} a call planned")
+              f"launches, {k2_plan(h, w, n_sw, 1)} a call planned")
     k2_cuda = sum(n for _c, n in k2_shapes.values())
     check(k2_cuda <= 80 * N_FRAMES,
           f"cc_labels made {k2_cuda / N_FRAMES:.1f} CUDA launches a frame")
@@ -3150,7 +3321,8 @@ def main() -> int:
     lap("phase 14, monocular SLAM")
     phase_stereo(torch, dev)
     lap("phase 15, stereo SLAM")
-    batch_ref, temporal_ref = phase_batch(torch, dev, cfg, rgbs, depths)
+    batch_ref, temporal_ref, batched = phase_batch(torch, dev, cfg, rgbs,
+                                                   depths)
     lap("phase 16, the batched front-end")
     phase_multidevice(torch, dev, cfg, rgbs, depths, batch_ref, temporal_ref)
     lap("phase 17, the multi-device paths")
@@ -3166,6 +3338,7 @@ def main() -> int:
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r.get("library_ms"),
+            "batched": batched.get(name),
         }
 
     print(json.dumps({"kernels_off_main_path": [

@@ -23,8 +23,20 @@
 // only the interior is written back. Launches ping-pong between two global
 // buffers, so no block reads what another writes. ceil(n_sweeps / k)
 // launches a call, the last one taking the remainder. Tiles are 64x64 and k
-// is the largest of 24, 20, 16, 12 at which the blocks are no more than the
-// card's multiprocessors (24 at 120x160, 16 at 240x320), else 8.
+// is the largest of 24, 20, 16, 12 at which the blocks of a launch (tiles
+// times lanes) are no more than the card's multiprocessors, else 8: for one
+// lane 24 at 120x160 and 16 at 240x320, for the batched front-end's four
+// lanes 16 at 120x160 and 8 at 240x320.
+//  - Lanes: a call labels B images of one shape at once ((B, h, w) seeds,
+//    masks and cluster images, the batched front-end's B frame pairs). The
+//    lane is blockIdx.z, the mask and the cluster image take a lane stride
+//    beside their row and column strides, and the two label buffers are
+//    (B, h, w) each. A launch's blocks are the tiles of every lane, so the
+//    wave rule above counts tiles times lanes. The fixed-point flag is
+//    shared by the lanes: a launch goes on while any lane changed in the
+//    launch before, and a sweep past a lane's own fixed point leaves it as it
+//    is, so each lane is exactly the same call on that lane alone; an
+//    unbatched call is the one-lane case.
 //  - A thread owns a run of 4 pixels of a row for the whole launch (1024
 //    threads, 16 runs a row): its own labels and its links stay in
 //    registers, a sweep reads the rows above and below as two 16-byte shared
@@ -70,10 +82,11 @@ constexpr int kSMs = 132;              // an H100's: the blocks of one wave
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 struct Image {
-  const int* seed;     // (h, w) contiguous, or null: linear index + 1
+  const int* seed;     // (B, h, w) contiguous, or null: linear index + 1
   const void* mask;    // bytes or int32, in the mask where > 0
   const int* labels;   // or null: the mask's own values
   int mask_bytes;      // 1 or 4
+  long long mask_sb, labels_sb;                // lane strides in elements
   int mask_sy, mask_sx, labels_sy, labels_sx;  // strides in elements
   int h, w;
 };
@@ -134,13 +147,20 @@ cc_tile_kernel(Image I, const int* __restrict__ in, int* __restrict__ out,
   const int h = I.h, w = I.w;
   const bool any = gr >= 0 && gr < h && gc + 3 >= 0 && gc < w;
   const bool whole = gc >= 0 && gc + 3 < w;
-  const int g = gr * w + gc;
+  const int g = gr * w + gc;                             // within the lane
+  // this block's lane: the label buffers and the seed are (B, h, w)
+  const long long lane = blockIdx.z;
+  const long long lane_px = lane * h * w;
+  if (in != nullptr) in += lane_px;
+  out += lane_px;
+  const int* const seed = I.seed != nullptr ? I.seed + lane_px : nullptr;
 
   // load what no launch of the call changes: the cluster image to buf_b,
   // the mask to s_in (pixels outside the image are outside the mask)
   int mv[4] = {0, 0, 0, 0}, lv[4] = {0, 0, 0, 0};
   if (any) {
-    const long long mo = static_cast<long long>(gr) * I.mask_sy +
+    const long long mo = lane * I.mask_sb +
+                         static_cast<long long>(gr) * I.mask_sy +
                          static_cast<long long>(gc) * I.mask_sx;
     if (I.mask_bytes == 1) {
       load_run(static_cast<const unsigned char*>(I.mask) + mo, I.mask_sx,
@@ -150,7 +170,8 @@ cc_tile_kernel(Image I, const int* __restrict__ in, int* __restrict__ out,
                mv);
     }
     if (I.labels != nullptr) {
-      load_run(I.labels + static_cast<long long>(gr) * I.labels_sy +
+      load_run(I.labels + lane * I.labels_sb +
+                   static_cast<long long>(gr) * I.labels_sy +
                    static_cast<long long>(gc) * I.labels_sx,
                I.labels_sx, whole, gc, w, lv);
     } else {
@@ -174,8 +195,8 @@ cc_tile_kernel(Image I, const int* __restrict__ in, int* __restrict__ out,
   if (any) {
     if (in != nullptr) {
       load_run(in + g, 1, whole, gc, w, x);
-    } else if (I.seed != nullptr) {
-      load_run(I.seed + g, 1, whole, gc, w, x);
+    } else if (seed != nullptr) {
+      load_run(seed + g, 1, whole, gc, w, x);
     } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e) x[e] = g + e + 1;
@@ -280,7 +301,7 @@ cc_tile_kernel(Image I, const int* __restrict__ in, int* __restrict__ out,
       val[e] = 0;
       if ((links >> (8 * e)) & kIn) {
         val[e] = lab[e] < kBig ? static_cast<int>(lab[e])
-                               : (I.seed ? I.seed[g + e] : 0);
+                               : (seed ? seed[g + e] : 0);
       }
     }
     if (col >= halo && col + 3 < kTile - halo && gc + 3 < w &&
@@ -297,17 +318,23 @@ cc_tile_kernel(Image I, const int* __restrict__ in, int* __restrict__ out,
     }
   }
   // the first launch reads no buffer: the second must run to fill its own
-  if (in == nullptr) moved = blockIdx.x == 0 && blockIdx.y == 0 && tid == 0;
+  if (in == nullptr) {
+    moved = blockIdx.x == 0 && blockIdx.y == 0 && lane == 0 && tid == 0;
+  }
   if (moved) flags[launch + 1] = 1;
 }
 
 // Sweeps a launch = rings of halo. A block's sweep costs the same whatever k
 // is, so the most sweeps a launch whose blocks still run all at once (one a
-// multiprocessor) make the fewest launches at no cost in time a sweep.
-int sweeps_a_launch(int h, int w) {
+// multiprocessor) make the fewest launches at no cost in time a sweep. A
+// launch's blocks are the tiles of all its lanes.
+int sweeps_a_launch(int h, int w, int lanes) {
   for (int k = 24; k > 8; k -= 4) {
     const int side = kTile - 2 * k;
-    if (((h + side - 1) / side) * ((w + side - 1) / side) <= kSMs) return k;
+    if (static_cast<long long>((h + side - 1) / side) *
+            ((w + side - 1) / side) * lanes <= kSMs) {
+      return k;
+    }
   }
   return 8;
 }
@@ -338,31 +365,33 @@ cudaError_t launch_one(dim3 grid, cudaStream_t s, const Image& I,
 
 }  // namespace
 
-// CUDA launches one call of cc_labels makes.
-extern "C" int cc_labels_launches(int h, int w, int n_sweeps) {
-  return n_launches(sweeps_a_launch(h, w), n_sweeps);
+// CUDA launches one call of cc_labels on `lanes` images makes.
+extern "C" int cc_labels_launches(int h, int w, int n_sweeps, int lanes) {
+  return n_launches(sweeps_a_launch(h, w, lanes), n_sweeps);
 }
 
-// seed: (h, w) int32 or null (linear index + 1 inside the mask). mask: (h, w)
-// of mask_bytes (1 or 4) bytes an element, labels: (h, w) int32 or null (the
-// mask's values), both with strides in elements. buf: (2, h, w) int32 scratch
-// of any content; the result is buf[(launches - 1) % 2]. flags: launches + 1
-// int32 words, zero. *n_launched (host) receives the launches made.
+// seed: (B, h, w) int32, contiguous, or null (linear index + 1 inside each
+// lane's mask). mask: (B, h, w) of mask_bytes (1 or 4) bytes an element,
+// labels: (B, h, w) int32 or null (the mask's values), both with lane, row
+// and column strides in elements. buf: (2, B, h, w) int32 scratch of any
+// content; the result is buf[(launches - 1) % 2]. flags: launches + 1 int32
+// words, zero. *n_launched (host) receives the launches made.
 extern "C" int cc_labels(const int* seed, const void* mask, const int* labels,
-                         int mask_bytes, int mask_sy, int mask_sx,
-                         int labels_sy, int labels_sx, int* buf, int* flags,
-                         int h, int w, int n_sweeps, int* n_launched,
-                         void* stream) {
+                         int mask_bytes, long long mask_sb, int mask_sy,
+                         int mask_sx, long long labels_sb, int labels_sy,
+                         int labels_sx, int* buf, int* flags, int lanes, int h,
+                         int w, int n_sweeps, int* n_launched, void* stream) {
   *n_launched = 0;
-  if ((mask_bytes != 1 && mask_bytes != 4) || n_sweeps < 0 || h < 1 || w < 1) {
+  if ((mask_bytes != 1 && mask_bytes != 4) || n_sweeps < 0 || h < 1 ||
+      w < 1 || lanes < 1 || lanes > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Image I{seed, mask, labels, mask_bytes, mask_sy, mask_sx,
-                labels_sy, labels_sx, h, w};
-  const int k = sweeps_a_launch(h, w);
+  const Image I{seed, mask, labels, mask_bytes, mask_sb, labels_sb, mask_sy,
+                mask_sx, labels_sy, labels_sx, h, w};
+  const int k = sweeps_a_launch(h, w, lanes);
   const int side = kTile - 2 * k;
-  const dim3 grid((w + side - 1) / side, (h + side - 1) / side);
-  const size_t px = static_cast<size_t>(h) * w;
+  const dim3 grid((w + side - 1) / side, (h + side - 1) / side, lanes);
+  const size_t px = static_cast<size_t>(h) * w * lanes;
   int left = n_sweeps;
   for (int i = 0, n = n_launches(k, n_sweeps); i < n; ++i) {
     const int sweeps = left < k ? left : k;

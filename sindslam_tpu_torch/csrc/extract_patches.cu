@@ -23,6 +23,10 @@
 // clamped to [0, dim - patch] as the Pallas kernel clamps its aligned start:
 // an out-of-contract corner returns a shifted window, never an
 // out-of-bounds read.
+// Lanes: both entries take B images ((B, h, w), the batched front-end's B
+// atlases) with (B, N) corners (and bins) in one launch: block (k, b) is
+// keypoint k of lane b, and the kernel offsets the image, the corners and
+// the output by the lane. An unbatched call is the one-lane case.
 
 #include <cuda_runtime.h>
 
@@ -55,22 +59,23 @@ __device__ __forceinline__ int clamp_corner(int v, int dim, int patch) {
 __global__ void patches_kernel(const float* __restrict__ img,
                                const int* __restrict__ y0,
                                const int* __restrict__ x0,
-                               float* __restrict__ out, int h, int w,
+                               float* __restrict__ out, int n, int h, int w,
                                int patch) {
-  const int k = blockIdx.x;
-  load_window(img, w, clamp_corner(y0[k], h, patch),
-              clamp_corner(x0[k], w, patch), patch,
-              out + static_cast<size_t>(k) * patch * patch);
+  const size_t k = static_cast<size_t>(blockIdx.y) * n + blockIdx.x;
+  load_window(img + static_cast<size_t>(blockIdx.y) * h * w, w,
+              clamp_corner(y0[k], h, patch), clamp_corner(x0[k], w, patch),
+              patch, out + k * patch * patch);
 }
 
 __global__ void __launch_bounds__(kBriefBits)
 brief_kernel(const float* __restrict__ img, const int* __restrict__ y0,
              const int* __restrict__ x0, const int* __restrict__ bins,
-             const int* __restrict__ table, int* __restrict__ out, int h,
-             int w) {
+             const int* __restrict__ table, int* __restrict__ out, int n,
+             int h, int w) {
   __shared__ float win[kBriefPatch * kBriefPatch];
-  const int k = blockIdx.x;
-  load_window(img, w, clamp_corner(y0[k], h, kBriefPatch),
+  const size_t k = static_cast<size_t>(blockIdx.y) * n + blockIdx.x;
+  load_window(img + static_cast<size_t>(blockIdx.y) * h * w, w,
+              clamp_corner(y0[k], h, kBriefPatch),
               clamp_corner(x0[k], w, kBriefPatch), kBriefPatch, win);
   __syncthreads();
   // bit j: sample j of the bin's row against sample 256 + j. Every lane
@@ -88,24 +93,34 @@ brief_kernel(const float* __restrict__ img, const int* __restrict__ y0,
 
 }  // namespace
 
-// img: (h, w) float32; y0, x0: (n,) int32; out: (n, patch, patch) float32.
+// img: (B, h, w) float32; y0, x0: (B, n) int32; out: (B, n, patch, patch)
+// float32; all contiguous.
 extern "C" int extract_patches(const float* img, const int* y0, const int* x0,
-                               float* out, int n, int h, int w, int patch,
-                               void* stream) {
+                               float* out, int lanes, int n, int h, int w,
+                               int patch, void* stream) {
   if (n == 0) return 0;
+  if (lanes < 1 || lanes > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  patches_kernel<<<n, kCopyThreads, 0, s>>>(img, y0, x0, out, h, w, patch);
+  patches_kernel<<<dim3(n, lanes), kCopyThreads, 0, s>>>(img, y0, x0, out, n,
+                                                         h, w, patch);
   return static_cast<int>(cudaGetLastError());
 }
 
-// img: (h, w) float32 with h, w >= 28; y0, x0: (n,) int32; bins: (n,) int32
-// in [0, n_bins); table: (n_bins, 512) int32 in [0, 784); out: (n, 8) int32.
+// img: (B, h, w) float32 with h, w >= 28; y0, x0: (B, n) int32; bins: (B, n)
+// int32 in [0, n_bins); table: (n_bins, 512) int32 in [0, 784); out:
+// (B, n, 8) int32; all contiguous.
 extern "C" int brief_from_patches(const float* img, const int* y0,
                                   const int* x0, const int* bins,
-                                  const int* table, int* out, int n, int h,
-                                  int w, void* stream) {
+                                  const int* table, int* out, int lanes,
+                                  int n, int h, int w, void* stream) {
   if (n == 0) return 0;
+  if (lanes < 1 || lanes > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  brief_kernel<<<n, kBriefBits, 0, s>>>(img, y0, x0, bins, table, out, h, w);
+  brief_kernel<<<dim3(n, lanes), kBriefBits, 0, s>>>(img, y0, x0, bins, table,
+                                                     out, n, h, w);
   return static_cast<int>(cudaGetLastError());
 }

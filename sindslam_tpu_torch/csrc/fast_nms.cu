@@ -22,6 +22,10 @@
 // and one ring around it into shared memory, and takes the 3x3 maximum from
 // there: the scores never reach device memory. A block with no pixel of any
 // level writes zeros and returns.
+// Lanes: a call scores a (B, H, W) stack of atlases that share one level
+// layout (the batched front-end's B frames) in the same one launch: the lane
+// is blockIdx.z, the grid of tiles times B. A block reads its own lane only,
+// so a lane is exactly the same call on that atlas alone.
 // Fewer operations, the same values: with d_k = ring_k - centre the bright
 // margin of a run is the min of d over it, and the dark margin is the min of
 // (centre - ring_k) = -d_k (IEEE subtraction is exactly antisymmetric), that
@@ -58,6 +62,9 @@ fast_nms_kernel(const float* __restrict__ img, float* __restrict__ out, int H,
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * kThreadsX + tx;
   const int X0 = blockIdx.x * kTile, Y0 = blockIdx.y * kTile;
+  const size_t lane_px = static_cast<size_t>(blockIdx.z) * H * W;
+  img += lane_px;
+  out += lane_px;
 
   if (tid == 0) s_any = 0;
   __syncthreads();
@@ -164,12 +171,13 @@ fast_nms_kernel(const float* __restrict__ img, float* __restrict__ out, int H,
 
 }  // namespace
 
-// img, out: (H, W) float32. levels: n_levels triples (y0, h, w) in host
-// memory, rows [y0, y0 + h) of the levels disjoint and inside the image.
-extern "C" int fast_nms(const float* img, float* out, int H, int W,
+// img, out: (B, H, W) float32, contiguous. levels: n_levels triples
+// (y0, h, w) in host memory, rows [y0, y0 + h) of the levels disjoint and
+// inside the image; every lane has this layout.
+extern "C" int fast_nms(const float* img, float* out, int lanes, int H, int W,
                         const int* levels, int n_levels, float min_th,
                         float ini_th, void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels) {
+  if (n_levels < 1 || n_levels > kMaxLevels || lanes < 1 || lanes > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Levels L;
@@ -185,7 +193,7 @@ extern "C" int fast_nms(const float* img, float* out, int H, int W,
     }
   }
   const dim3 block(kThreadsX, kThreadsY);
-  const dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile);
+  const dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, lanes);
   fast_nms_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       img, out, H, W, L, min_th, ini_th);
   return static_cast<int>(cudaGetLastError());

@@ -38,6 +38,12 @@
 // psi_s is computed once per pixel. The edge weights are symmetric
 // (w_down(r, c) = w_up(r + 1, c), w_right(r, c) = w_left(r, c + 1), the sum
 // of the same two floats), so two fields serve four directions.
+// Lanes: a call solves B levels of one shape at once (the batched
+// front-end's B frame pairs, (B, h, w) fields). The lane is blockIdx.z: the
+// single-block regime is B blocks in one launch, the tiled regime the grid
+// of tiles times B, and the (du, dv) ping-pong buffer is (B, 2, 2, h, w).
+// No block reads another lane, so a lane is computed exactly as the same
+// call on that lane alone; an unbatched call is the one-lane case.
 // Arithmetic: the expression shapes of the plain version
 // (cuda_kernels.sor_inner_plain), (alpha * w) * inv * neighbour summed left
 // to right, built with --fmad=false (ops/_build.py), with IEEE sqrtf and
@@ -76,15 +82,21 @@ struct Params {
   int halo;      // rings loaded around the interior
 };
 
-// du_in, dv_in: the increment before this launch, or null for zero.
-// du_out, dv_out: receive each block's interior.
+// Lane blockIdx.z of the fields and of buf, the (B, 2, 2, h, w) ping-pong
+// of (du, dv) pairs: pair `in` holds the increment before this launch (or
+// there is none: zero), pair `out` receives each block's interior.
 __global__ void __launch_bounds__(kBlockX* kBlockY, 1)
-sor_tile_kernel(Level L, const float* __restrict__ du_in,
-                const float* __restrict__ dv_in, float* __restrict__ du_out,
-                float* __restrict__ dv_out, Params P) {
+sor_tile_kernel(Level L, float* __restrict__ buf, int in, int out, Params P) {
   extern __shared__ float smem[];
   const int h = L.h, w = L.w;
   const int tx = threadIdx.x, ty = threadIdx.y;
+  // offsets of this block's lane (the host keeps 4 B h w below 2^31): its
+  // fields at f0, its du and dv before and after this launch in buf. Offsets
+  // and not moved pointers keep the fields' addresses in the parameters
+  // instead of registers.
+  const int px = h * w;
+  const int f0 = blockIdx.z * px;
+  const int du_in = 4 * f0 + 2 * px * in, du_out = 4 * f0 + 2 * px * out;
 
   // interior [R0, R1) x [C0, C1); loaded tile [r_lo, r_hi) x [c_lo, c_hi),
   // clipped to the image
@@ -123,10 +135,10 @@ sor_tile_kernel(Level L, const float* __restrict__ du_in,
       const bool inside = lr >= 0 && lr < th && lc >= 0 && lc < tw;
       const int g = (r_lo + lr) * w + c_lo + lc;
       const int i = lr * pw + lc;
-      s_u[i] = inside ? L.u[g] : 0.0f;
-      s_v[i] = inside ? L.v[g] : 0.0f;
-      s_du[i] = inside && du_in ? du_in[g] : 0.0f;
-      s_dv[i] = inside && dv_in ? dv_in[g] : 0.0f;
+      s_u[i] = inside ? L.u[f0 + g] : 0.0f;
+      s_v[i] = inside ? L.v[f0 + g] : 0.0f;
+      s_du[i] = inside && in >= 0 ? buf[du_in + g] : 0.0f;
+      s_dv[i] = inside && in >= 0 ? buf[du_in + px + g] : 0.0f;
       s_wv[i] = 0.0f;
       s_wh[i] = 0.0f;
     }
@@ -180,7 +192,7 @@ sor_tile_kernel(Level L, const float* __restrict__ du_in,
             gc < w - 1 ? 0.5f * (ps + s_ps[i + 1]) : 0.0f;
         const float wsum = w_up + w_down + w_left + w_right;
 
-        const int g = gr * w + gc;
+        const int g = f0 + gr * w + gc;
         const float ix = L.ix[g], iy = L.iy[g], iz = L.iz[g];
         const float ixx = L.ixx[g], ixy = L.ixy[g], iyy = L.iyy[g];
         const float ixz = L.ixz[g], iyz = L.iyz[g];
@@ -275,8 +287,8 @@ sor_tile_kernel(Level L, const float* __restrict__ du_in,
   for (int gr = R0 + ty; gr < R1; gr += kBlockY) {
     for (int gc = C0 + tx; gc < C1; gc += kBlockX) {
       const int i = (gr - r_lo) * pw + gc - c_lo;
-      du_out[gr * w + gc] = s_du[i];
-      dv_out[gr * w + gc] = s_dv[i];
+      buf[du_out + gr * w + gc] = s_du[i];
+      buf[du_out + px + gr * w + gc] = s_dv[i];
     }
   }
 }
@@ -299,15 +311,18 @@ extern "C" int sor_inner_launches(int h, int w, int inner, int sweeps) {
   return inner;
 }
 
-// The 10 fields are (h, w) float32. buf is (2, 2, h, w) float32 scratch of
-// any content: two (du, dv) pairs. The result is pair (inner - 1) % 2.
+// The 10 fields are (B, h, w) float32, contiguous. buf is (B, 2, 2, h, w)
+// float32 scratch of any content: two (du, dv) pairs a lane. The result is
+// pair (inner - 1) % 2 of each lane.
 extern "C" int sor_inner(const float* ix, const float* iy, const float* iz,
                          const float* ixx, const float* ixy, const float* iyy,
                          const float* ixz, const float* iyz, const float* u,
-                         const float* v, float* buf, int h, int w, float alpha,
-                         float gamma, float omega, int inner, int sweeps,
-                         void* stream) {
-  if (inner < 1 || sweeps < 0 || sor_inner_launches(h, w, inner, sweeps) < 0) {
+                         const float* v, float* buf, int lanes, int h, int w,
+                         float alpha, float gamma, float omega, int inner,
+                         int sweeps, void* stream) {
+  if (inner < 1 || sweeps < 0 || lanes < 1 || lanes > 65535 ||
+      4LL * lanes * h * w >= (1LL << 31) ||
+      sor_inner_launches(h, w, inner, sweeps) < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Level L{ix, iy, iz, ixx, ixy, iyy, ixz, iyz, u, v, h, w};
@@ -316,29 +331,26 @@ extern "C" int sor_inner(const float* ix, const float* iy, const float* iz,
       sor_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kMaxSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t px = static_cast<size_t>(h) * w;
-  auto du_of = [&](int pair) { return buf + 2 * px * pair; };
-  auto dv_of = [&](int pair) { return buf + 2 * px * pair + px; };
   const dim3 block(kBlockX, kBlockY);
 
   if (fits_one_block(h, w)) {
     const Params P{alpha, gamma, omega, sweeps, inner, h > w ? h : w, 0};
-    const int out = (inner - 1) % 2;
-    sor_tile_kernel<<<1, block, kFields * 4 * tile_pixels(h, w), s>>>(
-        L, nullptr, nullptr, du_of(out), dv_of(out), P);
+    sor_tile_kernel<<<dim3(1, 1, lanes), block,
+                      kFields * 4 * tile_pixels(h, w), s>>>(
+        L, buf, -1, (inner - 1) % 2, P);
     return static_cast<int>(cudaGetLastError());
   }
 
   const int halo = 2 * sweeps + 1;
   const int interior = kTile - 2 * halo;
   const Params P{alpha, gamma, omega, sweeps, 1, interior, halo};
-  const dim3 grid((w + interior - 1) / interior, (h + interior - 1) / interior);
+  const dim3 grid((w + interior - 1) / interior, (h + interior - 1) / interior,
+                  lanes);
   const size_t smem = kFields * 4 * tile_pixels(kTile, kTile);
   for (int it = 0; it < inner; ++it) {
-    const int out = it % 2, in = 1 - out;
-    sor_tile_kernel<<<grid, block, smem, s>>>(
-        L, it ? du_of(in) : nullptr, it ? dv_of(in) : nullptr, du_of(out),
-        dv_of(out), P);
+    const int out = it % 2;
+    sor_tile_kernel<<<grid, block, smem, s>>>(L, buf, it ? 1 - out : -1, out,
+                                              P);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -4,6 +4,10 @@
 Depth-gradient edges on the 5x5-median depth, 12-ring edge endpoints with
 NMS, and per-16x16-block plane fits merged by min-label propagation on the
 block grid; plane contours near endpoints become plane edges.
+
+Every function also takes (B, H, W) depth stacks; lane b is computed
+exactly as the same call on lane b alone (the blocks' covariances one lane
+at a time: cuBLAS sums them otherwise in a stack, ``image.per_lane``).
 """
 
 from __future__ import annotations
@@ -44,10 +48,10 @@ def depth_gradient_edges(depth_m: torch.Tensor, cfg: DynaConfig
 def edge_endpoints(edge: torch.Tensor, cfg: DynaConfig) -> torch.Tensor:
     """Edge pixels with <= 4 edge neighbours on the 12-point ring, kept where
     strongest within ``endpoint_nms_radius`` (ties: earlier pixel wins)."""
-    h, w = edge.shape
+    h, w = edge.shape[-2:]
     e = edge.to(torch.float32)
     p = torch.nn.functional.pad(e, (3, 3, 3, 3))
-    ring_count = sum(p[3 + dy:3 + dy + h, 3 + dx:3 + dx + w]
+    ring_count = sum(p[..., 3 + dy:3 + dy + h, 3 + dx:3 + dx + w]
                      for dy, dx in _RING12)
     local = im.box_filter(e, 3) * 9.0
     cand = edge & (ring_count <= 4) & (local >= 2.0)
@@ -60,9 +64,10 @@ def edge_endpoints(edge: torch.Tensor, cfg: DynaConfig) -> torch.Tensor:
 
 def _block_plane_fit(depth_m: torch.Tensor, cam: CameraConfig, cfg: DynaConfig):
     """Plane per BxB block: (normals (bh, bw, 3), offsets, mse, frac_valid,
-    mean (bh, bw, 3))."""
+    mean (bh, bw, 3)); (B, ...) of each of a stack."""
     B = cfg.plane_block
-    h, w = depth_m.shape
+    h, w = depth_m.shape[-2:]
+    lead = depth_m.shape[:-2]
     bh, bw = h // B, w // B
     dev = depth_m.device
     vs = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
@@ -72,24 +77,36 @@ def _block_plane_fit(depth_m: torch.Tensor, cam: CameraConfig, cfg: DynaConfig):
     z = torch.where(valid, depth_m, 0.0)
     pts = torch.stack([(us - cam.cx) / cam.fx * z, (vs - cam.cy) / cam.fy * z,
                        z], -1)
-    pb = pts[:bh * B, :bw * B].reshape(bh, B, bw, B, 3).permute(
-        0, 2, 1, 3, 4).reshape(bh, bw, B * B, 3)
-    vb = valid[:bh * B, :bw * B].reshape(bh, B, bw, B).permute(
-        0, 2, 1, 3).reshape(bh, bw, B * B).to(torch.float32)
+    pb = pts[..., :bh * B, :bw * B, :].reshape(*lead, bh, B, bw, B, 3
+                                                ).transpose(-4, -3).reshape(
+        *lead, bh, bw, B * B, 3)
+    vb = valid[..., :bh * B, :bw * B].reshape(*lead, bh, B, bw, B).transpose(
+        -3, -2).reshape(*lead, bh, bw, B * B).to(torch.float32)
     n = torch.sum(vb, -1)
-    mean = torch.sum(pb * vb[..., None], 2) / torch.clamp(n[..., None], min=1.0)
-    d = (pb - mean[:, :, None, :]) * vb[..., None]
-    cov = torch.einsum("ijka,ijkb->ijab", d, d) / torch.clamp(
-        n[..., None, None], min=1.0)
+    mean = torch.sum(pb * vb[..., None], -2) / torch.clamp(n[..., None],
+                                                           min=1.0)
+    d = (pb - mean[..., None, :]) * vb[..., None]
+    cov = _scatter_matrices(d) / torch.clamp(n[..., None, None], min=1.0)
     mse, normal = _sym3x3_min_eig(cov)
     normal = normal * torch.where(normal[..., 2:3] > 0, -1.0, 1.0)
     offset = torch.sum(normal * mean, -1)
     return normal, offset, mse, n / (B * B), mean
 
 
+@im.per_lane(4)
+def _scatter_matrices(d: torch.Tensor) -> torch.Tensor:
+    """(bh, bw, n, 3) centred points -> (bh, bw, 3, 3) sums of outer
+    products."""
+    return torch.einsum("ijka,ijkb->ijab", d, d)
+
+
+@im.per_lane(4)
 def _sym3x3_min_eig(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Smallest eigenvalue + eigenvector of batched symmetric 3x3 matrices,
-    closed form (trigonometric eigenvalues, largest row cross product)."""
+    closed form (trigonometric eigenvalues, largest row cross product). A
+    stack of lanes' grids one lane at a time: the CPU's vectorised arccos
+    and cos round otherwise than its scalar ones, which take a row's last
+    elements."""
     a00, a11, a22 = A[..., 0, 0], A[..., 1, 1], A[..., 2, 2]
     a01, a02, a12 = A[..., 0, 1], A[..., 0, 2], A[..., 1, 2]
     q = (a00 + a11 + a22) / 3.0
@@ -123,8 +140,10 @@ def _sym3x3_min_eig(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.clamp(lam, min=0.0), v
 
 
-def _roll2(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
-    return torch.roll(torch.roll(x, dy, 0), dx, 1)
+def _roll2(x: torch.Tensor, dy: int, dx: int, axis: int = -2) -> torch.Tensor:
+    """``x`` rolled by (dy, dx) along the grid axes ``axis`` and
+    ``axis + 1``."""
+    return torch.roll(torch.roll(x, dy, axis), dx, axis + 1)
 
 
 def plane_segmentation(depth_m: torch.Tensor, cam: CameraConfig,
@@ -132,10 +151,11 @@ def plane_segmentation(depth_m: torch.Tensor, cam: CameraConfig,
     """Near-planar regions: ((H, W) int32 plane labels or -1, (H, W) bool
     plane contours)."""
     B = cfg.plane_block
-    h, w = depth_m.shape
+    h, w = depth_m.shape[-2:]
+    lead = depth_m.shape[:-2]
     dev = depth_m.device
     normal, offset, mse, frac, mean = _block_plane_fit(depth_m, cam, cfg)
-    bh, bw = mse.shape
+    bh, bw = mse.shape[-2:]
     z_mean = torch.clamp(mean[..., 2], min=0.3)
     tol = torch.clamp(0.004 * z_mean + 0.002 * z_mean * z_mean, min=0.009)
     planar = (frac > 0.75) & (mse < tol * tol)
@@ -147,7 +167,7 @@ def plane_segmentation(depth_m: torch.Tensor, cam: CameraConfig,
     xs = torch.arange(bw, device=dev)[None, :].expand(bh, bw)
 
     def compatible(sy, sx):
-        n2 = _roll2(normal, sy, sx)
+        n2 = _roll2(normal, sy, sx, -3)
         o2 = _roll2(offset, sy, sx)
         p2 = _roll2(planar, sy, sx)
         dot = torch.sum(normal * n2, -1)
@@ -174,8 +194,9 @@ def plane_segmentation(depth_m: torch.Tensor, cam: CameraConfig,
             cand = torch.where(ok & (neigh > 0), neigh, big)
             best = torch.minimum(best, torch.where(best > 0, cand, best))
         # pointer jumping on the flat block grid
-        jumped = best.reshape(-1)[torch.clamp(best - 1, min=0).reshape(-1).long()
-                                  ].reshape(bh, bw)
+        flat = best.reshape(*lead, -1)
+        jumped = torch.gather(flat, -1, torch.clamp(flat - 1, min=0).long()
+                              ).reshape(best.shape)
         block_labels = torch.where((best > 0) & (jumped > 0),
                                    torch.minimum(best, jumped), best)
 
@@ -188,16 +209,20 @@ def plane_segmentation(depth_m: torch.Tensor, cam: CameraConfig,
     pts = torch.stack([(us - cam.cx) / cam.fx * z, (vs - cam.cy) / cam.fy * z,
                        z], -1)
 
-    def block_up(a):
-        up = torch.repeat_interleave(torch.repeat_interleave(a, B, 0), B, 1)
-        ph, pw = h - up.shape[0], w - up.shape[1]
+    def block_up(a, axis=-2):
+        """Blocks to pixels along the grid axes ``axis`` and ``axis + 1``."""
+        up = torch.repeat_interleave(torch.repeat_interleave(a, B, axis), B,
+                                     axis + 1)
+        ph, pw = h - up.shape[axis], w - up.shape[axis + 1]
         if ph or pw:
-            rows = torch.clamp(torch.arange(h, device=dev), max=up.shape[0] - 1)
-            cols = torch.clamp(torch.arange(w, device=dev), max=up.shape[1] - 1)
-            up = up[rows][:, cols]
+            rows = torch.clamp(torch.arange(h, device=dev),
+                               max=up.shape[axis] - 1)
+            cols = torch.clamp(torch.arange(w, device=dev),
+                               max=up.shape[axis + 1] - 1)
+            up = up.index_select(axis, rows).index_select(axis + 1, cols)
         return up
 
-    n_img = block_up(normal)
+    n_img = block_up(normal, -3)
     o_img = block_up(offset)
     lbl_img = block_up(block_labels)
     tol_img = block_up(3.0 * tol)
@@ -206,21 +231,22 @@ def plane_segmentation(depth_m: torch.Tensor, cam: CameraConfig,
 
     # drop small planes (min support), counted per block then per label
     passed = (plane_px > 0).to(torch.float32)
-    blk_cnt = passed[:bh * B, :bw * B].reshape(bh, B, bw, B).sum(dim=(1, 3))
-    areas = torch.zeros(bh * bw + 1, dtype=torch.float32, device=dev
-                        ).index_add_(0, block_labels.reshape(-1).long(),
-                                     blk_cnt.reshape(-1))
+    blk_cnt = passed[..., :bh * B, :bw * B].reshape(*lead, bh, B, bw, B).sum(
+        dim=(-3, -1))
+    areas = im.segment_sum(blk_cnt.reshape(*lead, -1),
+                           block_labels.reshape(*lead, -1), bh * bw + 1)
     keep = areas >= cfg.plane_min_support
-    keep_img = block_up(keep[block_labels.long()])
+    keep_img = block_up(im.lane_index(keep, block_labels.long(),
+                                      bool(lead)))
     plane_px = torch.where(keep_img & (plane_px > 0), plane_px, 0)
     labels = torch.where(plane_px > 0, plane_px, -1).to(torch.int32)
 
     # contours: plane boundary pixels, thickness 2
     lab = plane_px
-    p = torch.nn.functional.pad(lab[None].float(), (1, 1, 1, 1),
-                                mode="replicate")[0].to(lab.dtype)
-    differs = ((p[0:h, 1:w + 1] != lab) | (p[2:h + 2, 1:w + 1] != lab)
-               | (p[1:h + 1, 0:w] != lab) | (p[1:h + 1, 2:w + 2] != lab))
+    p = im.pad_replicate(lab.float(), (1, 1, 1, 1)).to(lab.dtype)
+    differs = ((p[..., 0:h, 1:w + 1] != lab) | (p[..., 2:h + 2, 1:w + 1] != lab)
+               | (p[..., 1:h + 1, 0:w] != lab)
+               | (p[..., 1:h + 1, 2:w + 2] != lab))
     boundary = differs & (lab > 0)
     contours = im.dilate(boundary.to(torch.float32), 3) > 0.5
     return labels, contours

@@ -7,6 +7,10 @@ on the high mask (its components at quarter resolution by kernel K2,
 whole-cluster promotion with temporal persistence, and the flow-warped
 per-pixel persistence score with depth release; then the final dilation and
 the 255/125/0 encoding at full resolution.
+
+``fuse_masks`` also takes (B, H, W) stacks of lanes, with one K2 call for
+all of them; lane b is computed exactly as the same call on lane b alone
+(the per-label sums over all pixels one lane at a time, ``image.per_lane``).
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ _CC_SWEEPS = 256  # K2 budget at quarter resolution
 
 
 class FusionResult(NamedTuple):
+    """One frame's result; (B, ...) of each field of a stack."""
+
     dyna_mask: torch.Tensor        # (H, W) int32: 255 / 125 / 0
     dynamic_ratio: torch.Tensor    # (_K_LABELS,) per-label dynamic fraction
     ratio_img: torch.Tensor        # (H, W) f32 per-pixel cluster ratio
@@ -38,18 +44,15 @@ class FusionResult(NamedTuple):
 
 def _label_onehot(label_img: torch.Tensor) -> torch.Tensor:
     """(H*W, K) one-hot of the label image, shared by every per-label sum."""
-    lab = torch.clamp(label_img.reshape(-1), 0, _K_LABELS - 1)
-    return (lab[:, None] == torch.arange(_K_LABELS, device=lab.device)[None, :]
+    lab = torch.clamp(label_img.reshape(*label_img.shape[:-2], -1), 0,
+                      _K_LABELS - 1)
+    return (lab[..., None] == torch.arange(_K_LABELS, device=lab.device)
             ).to(torch.float32)
 
 
 def _up2(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    return torch.repeat_interleave(torch.repeat_interleave(x, 2, 0), 2, 1)[:h, :w]
-
-
-def _segment_sum(values: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
-    return torch.zeros(n, dtype=torch.float32, device=values.device
-                       ).index_add_(0, ids.long(), values.to(torch.float32))
+    return torch.repeat_interleave(torch.repeat_interleave(x, 2, -2), 2,
+                                   -1)[..., :h, :w]
 
 
 def fuse_masks(low_mask: torch.Tensor, high_mask: torch.Tensor,
@@ -62,7 +65,9 @@ def fuse_masks(low_mask: torch.Tensor, high_mask: torch.Tensor,
     ``flow_w`` is (u, v, ok) — the raw working-scale flow and the Python
     bool moderate-motion verdict; ``flow_scale`` 1.0 for n->n-1 flow, 0.5
     for n->n-2."""
-    h, w = low_mask.shape
+    h, w = low_mask.shape[-2:]
+    lead = low_mask.shape[:-2]
+    batched = bool(lead)
     label_h = im.subsample(label_img)
     valid_h = im.subsample(valid)
     onehot_h = _label_onehot(label_h)                   # (HW/4, 33)
@@ -73,24 +78,25 @@ def fuse_masks(low_mask: torch.Tensor, high_mask: torch.Tensor,
     high = high_mask & valid
 
     # per-contour high-evidence gate at quarter resolution
-    clus_area = torch.sum(onehot_h, 0)
+    clus_area = torch.sum(onehot_h, -2)
     high_in = high & (label_img > 0)
     high_2 = im.block_or2(high_in)
     high_h = im.block_or2(high_2)
-    qh, qw = high_h.shape
+    qh, qw = high_h.shape[-2:]
     comp_h = ck.cc_labels(None, high_h, high_h, n_sweeps=_CC_SWEEPS)
-    comp_flat_h = comp_h.reshape(-1)
+    comp_flat_h = comp_h.reshape(*lead, -1)
     n_seg = qh * qw + 1
-    area_c = _segment_sum(high_h.reshape(-1), comp_flat_h, n_seg)
+    area_c = im.segment_sum(high_h.reshape(*lead, -1), comp_flat_h, n_seg)
     interior_h = im.erode(high_h.to(torch.float32), 3) > 0.5
-    perim_c = _segment_sum((high_h & ~interior_h).reshape(-1), comp_flat_h, n_seg)
+    perim_c = im.segment_sum((high_h & ~interior_h).reshape(*lead, -1),
+                             comp_flat_h, n_seg)
     roundness_c = 4.0 * math.pi * area_c / torch.clamp(perim_c * perim_c, min=1.0)
     eligible_c = (((area_c > cfg.flood_min_area / 16.0)
                    & (roundness_c > cfg.flood_roundness))
                   | (area_c > cfg.flood_big_area / 16.0))
-    eligible_c[0] = False
-    elig_q = eligible_c[comp_flat_h.long()].reshape(qh, qw)
-    elig_half = _up2(elig_q, *label_h.shape)
+    eligible_c[..., 0] = False
+    elig_q = im.lane_index(eligible_c, comp_h.long(), batched)
+    elig_half = _up2(elig_q, *label_h.shape[-2:])
 
     # label-preserving geodesic growth of eligible seeds through the low mask
     seed_h = high_2 & elig_half
@@ -102,31 +108,32 @@ def fuse_masks(low_mask: torch.Tensor, high_mask: torch.Tensor,
 
     # whole-cluster promotion with temporal persistence
     prev_ratio_h = im.subsample(prev_ratio_img).to(torch.float32)
-    sums = torch.stack([filled_h.reshape(-1).to(torch.float32),
-                        prev_ratio_h.reshape(-1),
-                        high_2.reshape(-1).to(torch.float32)]) @ onehot_h
+    sums = im.lane_matmul(torch.stack([
+        filled_h.reshape(*lead, -1).to(torch.float32),
+        prev_ratio_h.reshape(*lead, -1),
+        high_2.reshape(*lead, -1).to(torch.float32)], -2), onehot_h)
     denom = torch.clamp(clus_area, min=1.0)
-    frac = sums[0] / denom
-    prev_mean = sums[1] / denom
-    high_cover = sums[2] / denom
+    frac = sums[..., 0, :] / denom
+    prev_mean = sums[..., 1, :] / denom
+    high_cover = sums[..., 2, :] / denom
     frac_ev = torch.where(high_cover > cfg.promote_min_high_cover, frac,
                           torch.clamp(frac, max=cfg.cluster_dynamic_frac))
     frac_ev = torch.minimum(frac_ev, prev_mean + cfg.promote_ratio_ramp)
     persist = torch.maximum(frac_ev, prev_mean * cfg.persist_ratio_decay)
     full_dyn = persist > cfg.cluster_dynamic_frac
-    full_dyn[0] = False
+    full_dyn[..., 0] = False
     dynamic_ratio = persist.clone()
-    dynamic_ratio[0] = 0.0
+    dynamic_ratio[..., 0] = 0.0
     lab_idx = torch.clamp(label_h.long(), 0, _K_LABELS - 1)
-    full_dyn_px = full_dyn[lab_idx]
-    ratio_h = dynamic_ratio[lab_idx]
+    full_dyn_px = im.lane_index(full_dyn, lab_idx, batched)
+    ratio_h = im.lane_index(dynamic_ratio, lab_idx, batched)
     dynamic_h = filled_h | (full_dyn_px & (label_h > 0))
 
     # per-pixel persistence, motion-compensated by the raw flow
     prev_score_h = im.subsample(prev_dyn_score).to(torch.float32)
     fw_u, fw_v, flow_ok = flow_w
-    wh, ww = fw_u.shape
-    h2, w2 = label_h.shape
+    wh, ww = fw_u.shape[-2:]
+    h2, w2 = label_h.shape[-2:]
     u_h = im.resize_bilinear(fw_u, (h2, w2)) * ((w2 / ww) * flow_scale)
     v_h = im.resize_bilinear(fw_v, (h2, w2)) * ((h2 / wh) * flow_scale)
     d_h = im.subsample(depth_m).to(torch.float32)

@@ -10,6 +10,11 @@ atlas too. BRIEF follows the reference's TPU route
 (``cuda_kernels.brief_from_patches``): it gathers each 28x28 patch, samples
 it with the 64-angle-bin offset table and packs the bits. Descriptors are
 (N, 8) int32 words holding the reference's uint32 bit patterns.
+
+``extract_orb`` also takes a (B, H, W) stack of lanes and returns features
+stacked (B, N, ...): one K3 launch scores the (B, atlas_h, W) stack of
+atlases and one K4 launch describes every lane's keypoints; lane b is
+computed exactly as the same call on lane b alone.
 """
 
 from __future__ import annotations
@@ -53,7 +58,8 @@ _PATTERN = _brief_pattern()
 
 
 class OrbFeatures(NamedTuple):
-    """Fixed-capacity feature set for one image."""
+    """Fixed-capacity feature set for one image ((B, N, ...) fields for a
+    stack of B)."""
 
     xy: torch.Tensor        # (N, 2) float32 full-resolution pixel coords (x, y)
     level: torch.Tensor     # (N,) int32 pyramid level
@@ -64,7 +70,7 @@ class OrbFeatures(NamedTuple):
 
     @property
     def capacity(self) -> int:
-        return int(self.xy.shape[0])
+        return int(self.xy.shape[-2])
 
 
 def level_shapes(h: int, w: int, n_levels: int, scale: float
@@ -99,46 +105,52 @@ def _topk_unrolled(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]
 def _cell_candidates(score: torch.Tensor, quota: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-_CELL_TOPK per 32x32 cell, then the global top-``quota`` by score:
-    ((quota, 2) int64 yx, (quota,) score)."""
-    h, w = score.shape
+    ((quota, 2) int64 yx, (quota,) score); (B, ...) of each of a stack."""
+    h, w = score.shape[-2:]
+    lead = score.shape[:-2]
     ch = -(-h // _CELL)
     cw = -(-w // _CELL)
-    s = torch.full((ch * _CELL, cw * _CELL), -torch.inf, dtype=score.dtype,
-                   device=score.device)
-    s[:h, :w] = torch.where(score > 0, score, -torch.inf)
-    cells = s.reshape(ch, _CELL, cw, _CELL).permute(0, 2, 1, 3
-                                                    ).reshape(ch * cw, _CELL * _CELL)
+    s = torch.full((*lead, ch * _CELL, cw * _CELL), -torch.inf,
+                   dtype=score.dtype, device=score.device)
+    s[..., :h, :w] = torch.where(score > 0, score, -torch.inf)
+    cells = s.reshape(*lead, ch, _CELL, cw, _CELL).transpose(-3, -2).reshape(
+        *lead, ch * cw, _CELL * _CELL)
     top_s, top_i = _topk_unrolled(cells, _CELL_TOPK)
     cell = torch.arange(ch * cw, device=score.device)[:, None]
-    cand_y = ((cell // cw) * _CELL + top_i // _CELL).reshape(-1)
-    cand_x = ((cell % cw) * _CELL + top_i % _CELL).reshape(-1)
-    cand_s = top_s.reshape(-1)
-    k = min(quota, cand_s.shape[0])
+    cand_y = ((cell // cw) * _CELL + top_i // _CELL).reshape(*lead, -1)
+    cand_x = ((cell % cw) * _CELL + top_i % _CELL).reshape(*lead, -1)
+    cand_s = top_s.reshape(*lead, -1)
+    k = min(quota, cand_s.shape[-1])
     best_s, best_i = top_k_stable(cand_s, k)
-    yx = torch.stack([cand_y[best_i], cand_x[best_i]], -1)
+    yx = torch.stack([torch.gather(cand_y, -1, best_i),
+                      torch.gather(cand_x, -1, best_i)], -1)
     if k < quota:  # pad (tiny levels)
-        yx = torch.cat([yx, torch.zeros((quota - k, 2), dtype=yx.dtype,
-                                        device=yx.device)])
-        best_s = torch.cat([best_s, torch.full((quota - k,), -torch.inf,
-                                               device=best_s.device)])
+        yx = torch.cat([yx, torch.zeros((*lead, quota - k, 2), dtype=yx.dtype,
+                                        device=yx.device)], -2)
+        best_s = torch.cat([best_s, torch.full((*lead, quota - k), -torch.inf,
+                                               device=best_s.device)], -1)
     return yx, best_s
 
 
 def _shift_rows(x: torch.Tensor, dy: int) -> torch.Tensor:
-    """out[y] = x[y + dy], clamped at the borders."""
+    """out[..., y, :] = x[..., y + dy, :], clamped at the borders."""
     if dy == 0:
         return x
+    lead = x.shape[:-2]
     if dy > 0:
-        return torch.cat([x[dy:], x[-1:].expand(dy, -1)], 0)
-    return torch.cat([x[:1].expand(-dy, -1), x[:dy]], 0)
+        return torch.cat([x[..., dy:, :],
+                          x[..., -1:, :].expand(*lead, dy, -1)], -2)
+    return torch.cat([x[..., :1, :].expand(*lead, -dy, -1), x[..., :dy, :]],
+                     -2)
 
 
 def _shift_cols(x: torch.Tensor, dx: int) -> torch.Tensor:
     if dx == 0:
         return x
+    lead = x.shape[:-1]
     if dx > 0:
-        return torch.cat([x[:, dx:], x[:, -1:].expand(-1, dx)], 1)
-    return torch.cat([x[:, :1].expand(-1, -dx), x[:, :dx]], 1)
+        return torch.cat([x[..., dx:], x[..., -1:].expand(*lead, dx)], -1)
+    return torch.cat([x[..., :1].expand(*lead, -dx), x[..., :dx]], -1)
 
 
 def ic_angle_fields(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -146,9 +158,10 @@ def ic_angle_fields(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     row dy of half-width k(dy), the window sum over dx is the difference of
     two shifted row-cumsum lookups."""
     r = _PATCH_RADIUS
-    xs = torch.arange(img.shape[1], dtype=torch.float32, device=img.device)[None, :]
-    S0 = torch.cumsum(img, 1)
-    S1 = torch.cumsum(img * xs, 1)
+    xs = torch.arange(img.shape[-1], dtype=torch.float32,
+                      device=img.device)[None, :]
+    S0 = torch.cumsum(img, -1)
+    S1 = torch.cumsum(img * xs, -1)
     m10 = torch.zeros_like(img)
     m01 = torch.zeros_like(img)
     for dy in range(-r, r + 1):
@@ -193,11 +206,12 @@ def brief_descriptors(img_blur: torch.Tensor, yx: torch.Tensor,
     """Rotation-steered 256-bit BRIEF with the angle quantized to 64 bins
     (<= 2.9 deg): kernel K4 reads each keypoint's 28x28 window at its
     clipped corner, tests the 256 sample pairs of its bin's table row and
-    packs the bits, in one launch."""
-    h, w = img_blur.shape
+    packs the bits, in one launch (for every lane of a (B, h, w) stack with
+    (B, N) keypoints)."""
+    h, w = img_blur.shape[-2:]
     c0 = _PATCH // 2
-    y0 = torch.clamp(yx[:, 0] - c0, 0, h - _PATCH).to(torch.int32)
-    x0 = torch.clamp(yx[:, 1] - c0, 0, w - _PATCH).to(torch.int32)
+    y0 = torch.clamp(yx[..., 0] - c0, 0, h - _PATCH).to(torch.int32)
+    x0 = torch.clamp(yx[..., 1] - c0, 0, w - _PATCH).to(torch.int32)
     tau = (2.0 * math.pi) / _N_ANGLE_BINS
     bins = torch.remainder(torch.round(angle / tau).to(torch.int32),
                            _N_ANGLE_BINS)
@@ -206,11 +220,25 @@ def brief_descriptors(img_blur: torch.Tensor, yx: torch.Tensor,
 
 
 def _border_mask(score: torch.Tensor, margin: int) -> torch.Tensor:
-    h, w = score.shape
+    h, w = score.shape[-2:]
     out = torch.zeros_like(score)
-    out[margin:h - margin, margin:w - margin] = \
-        score[margin:h - margin, margin:w - margin]
+    out[..., margin:h - margin, margin:w - margin] = \
+        score[..., margin:h - margin, margin:w - margin]
     return out
+
+
+# atan2 of each lane's (N,) moments on its own: the CPU's vectorised atan2
+# rounds otherwise than its scalar one, which takes a row's last elements
+_atan2 = im.per_lane(1)(torch.atan2)
+
+
+def _at_pixels(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor
+               ) -> torch.Tensor:
+    """``img[ys, xs]``; of a (B, H, W) stack at (B, N) pixels, lane by
+    lane."""
+    if img.dim() == 2:
+        return img[ys, xs]
+    return img[torch.arange(img.shape[0], device=img.device)[:, None], ys, xs]
 
 
 @functools.lru_cache(maxsize=8)
@@ -239,23 +267,28 @@ def extract_orb(gray: torch.Tensor, dyna_mask: torch.Tensor, cfg: ORBConfig,
                 height: int = 480, width: int = 640) -> OrbFeatures:
     """ORB features of an (H, W) grayscale image, erasing keypoints on
     dynamic pixels (mask == 255) with the < min_keypoints revert rule; each
-    level over-selects and refills erased keypoints with the next best."""
+    level over-selects and refills erased keypoints with the next best.
+    (B, H, W) stacks of images and masks give features stacked (B, N,
+    ...)."""
     shapes, offs, atlas_h, layout = _atlas_layout(height, width, cfg.n_levels,
                                                   cfg.scale_factor)
     quotas = level_quotas(cfg.n_features, cfg.n_levels, cfg.scale_factor)
     dev = gray.device
+    lead = gray.shape[:-2]
+    batched = bool(lead)
     level_offs = _atlas_offsets_on(tuple(offs), dev)
     g = gray.to(torch.float32)
-    atlas = torch.zeros((atlas_h, width), dtype=torch.float32, device=dev)
+    atlas = torch.zeros((*lead, atlas_h, width), dtype=torch.float32,
+                        device=dev)
     level_img = g
     for l, ((lh, lw), y0) in enumerate(zip(shapes, offs)):
         if l > 0:
             level_img = im.resize_bilinear(level_img, (lh, lw))
-        atlas[y0:y0 + lh, :lw] = level_img
+        atlas[..., y0:y0 + lh, :lw] = level_img
     # every level in one launch; each level's scores are a view of the result
     scores = ck.fast_nms(atlas, float(cfg.min_th_fast), float(cfg.ini_th_fast),
                          levels=layout)
-    level_scores = [scores[y0:y0 + lh, :lw]
+    level_scores = [scores[..., y0:y0 + lh, :lw]
                     for (lh, lw), y0 in zip(shapes, offs)]
     m10_img, m01_img = ic_angle_fields(atlas)
     blur = im.gaussian_blur(atlas, 7, 2.0)
@@ -265,32 +298,37 @@ def extract_orb(gray: torch.Tensor, dyna_mask: torch.Tensor, cfg: ORBConfig,
         score = _border_mask(level_scores[l], _EDGE_MARGIN)
         refill = max(quota // 2, 8)
         yx2, sc2 = _cell_candidates(score, quota + refill)
-        xy2 = torch.stack([yx2[:, 1], yx2[:, 0]], -1).to(torch.float32) \
+        xy2 = torch.stack([yx2[..., 1], yx2[..., 0]], -1).to(torch.float32) \
             * (cfg.scale_factor ** l)
-        cx2 = torch.clamp(xy2[:, 0].to(torch.int64), 0, width - 1)
-        cy2 = torch.clamp(xy2[:, 1].to(torch.int64), 0, height - 1)
-        dyn2 = dyna_mask[cy2, cx2] == 255
+        cx2 = torch.clamp(xy2[..., 0].to(torch.int64), 0, width - 1)
+        cy2 = torch.clamp(xy2[..., 1].to(torch.int64), 0, height - 1)
+        dyn2 = _at_pixels(dyna_mask, cy2, cx2) == 255
         s_pen = torch.where(dyn2, sc2 - 1e6, sc2)
         _, keep = top_k_stable(s_pen, quota)
-        feats_xy.append(xy2[keep])
-        feats_lvl.append(torch.full((quota,), l, dtype=torch.int32, device=dev))
-        feats_score.append(sc2[keep])
-        yx_atlas.append(yx2[keep] + level_offs[l])
+        feats_xy.append(im.lane_index(xy2, keep, batched))
+        feats_lvl.append(torch.full((*lead, quota), l, dtype=torch.int32,
+                                    device=dev))
+        feats_score.append(im.lane_index(sc2, keep, batched))
+        yx_atlas.append(im.lane_index(yx2, keep, batched) + level_offs[l])
 
-    yx_all = torch.cat(yx_atlas)
-    flat_idx = yx_all[:, 0] * width + yx_all[:, 1]
-    ang = torch.atan2(m01_img.reshape(-1)[flat_idx], m10_img.reshape(-1)[flat_idx])
+    yx_all = torch.cat(yx_atlas, -2)
+    flat_idx = yx_all[..., 0] * width + yx_all[..., 1]
+
+    def at(img):
+        return torch.gather(img.reshape(*lead, -1), -1, flat_idx)
+
+    ang = _atan2(at(m01_img), at(m10_img))
     desc = brief_descriptors(blur, yx_all, ang)
 
-    xy = torch.cat(feats_xy)
-    lvl = torch.cat(feats_lvl)
-    sc = torch.cat(feats_score)
+    xy = torch.cat(feats_xy, -2)
+    lvl = torch.cat(feats_lvl, -1)
+    sc = torch.cat(feats_score, -1)
     valid = torch.isfinite(sc) & (sc > 0)
-    mx = torch.clamp(xy[:, 0].to(torch.int64), 0, width - 1)
-    my = torch.clamp(xy[:, 1].to(torch.int64), 0, height - 1)
-    survivors = valid & ~(dyna_mask[my, mx] == 255)
-    revert = torch.sum(survivors) < cfg.min_keypoints_after_mask
-    valid = torch.where(revert, valid, survivors)
+    mx = torch.clamp(xy[..., 0].to(torch.int64), 0, width - 1)
+    my = torch.clamp(xy[..., 1].to(torch.int64), 0, height - 1)
+    survivors = valid & ~(_at_pixels(dyna_mask, my, mx) == 255)
+    revert = torch.sum(survivors, -1) < cfg.min_keypoints_after_mask
+    valid = torch.where(revert[..., None], valid, survivors)
     return OrbFeatures(xy=xy, level=lvl, angle=ang, score=sc, desc=desc,
                        valid=valid)
 

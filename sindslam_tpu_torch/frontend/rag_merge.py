@@ -7,6 +7,12 @@ largest become RAG nodes with area, centre and a 16-bin depth histogram;
 pairwise adjacency / histogram / edge-composition features are K x K
 matmuls; a fixed 16-step greedy union merge runs on the K x K scores, and
 leftover valid pixels adopt neighbouring labels by geodesic growth.
+
+``rag_merge`` and its helpers also take (B, H, W) stacks of lanes, with one
+K2 call for all of them; lane b is computed exactly as the same call on
+lane b alone (the node features' sums over all pixels and the histogram
+products one lane at a time, ``image.per_lane``: they part on the card in
+a stack).
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ _CC_SWEEPS = 768      # K2 budget at half resolution
 
 
 class RagResult(NamedTuple):
+    """One frame's result; (B, ...) of each field of a stack."""
+
     label_img: torch.Tensor     # (H, W) int32: 1..N cluster ids, 0 = invalid
     n_clusters: torch.Tensor    # scalar int32
     areas: torch.Tensor         # (_K_MAX,) float32 per final cluster
@@ -43,23 +51,28 @@ def top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 def _compact_topk(comp: torch.Tensor, k: int, min_area: float
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Keep the k largest components: ((H, W) int32 ids in [0, k) or -1,
-    (k,) areas)."""
-    h, w = comp.shape
-    flat = comp.reshape(-1).long()
-    areas_all = torch.zeros(h * w + 1, dtype=torch.float32, device=comp.device)
-    areas_all.index_add_(0, flat, torch.ones_like(flat, dtype=torch.float32))
-    areas_all[0] = 0.0
+    (k,) areas); (B, ...) of each of a stack."""
+    h, w = comp.shape[-2:]
+    lead = comp.shape[:-2]
+    flat = comp.reshape(*lead, -1).long()
+    areas_all = im.segment_sum(torch.ones_like(flat, dtype=torch.float32),
+                               flat, h * w + 1)
+    areas_all[..., 0] = 0.0
     top_area, top_id = top_k_stable(areas_all, k)
     keep = top_area >= min_area
-    rank = torch.full((h * w + 1,), -1, dtype=torch.int32, device=comp.device)
-    rank[top_id] = torch.where(keep, torch.arange(k, dtype=torch.int32,
-                                                  device=comp.device), -1)
-    return rank[flat].reshape(h, w), torch.where(keep, top_area, 0.0)
+    rank = torch.full((*lead, h * w + 1), -1, dtype=torch.int32,
+                      device=comp.device)
+    rank.scatter_(-1, top_id, torch.where(
+        keep, torch.arange(k, dtype=torch.int32, device=comp.device), -1))
+    return (torch.gather(rank, -1, flat).reshape(comp.shape),
+            torch.where(keep, top_area, 0.0))
 
 
 def _pair_counts(masks: torch.Tensor, weight_img: torch.Tensor) -> torch.Tensor:
-    """(K, HW) x (HW,) -> (K, K) sums of m_i(p) m_j(p) w(p)."""
-    return (masks * weight_img.reshape(-1)[None, :]) @ masks.T
+    """(K, HW) x (HW,) -> (K, K) sums of m_i(p) m_j(p) w(p) (0/1 values:
+    exact in any order)."""
+    weights = weight_img.reshape(*weight_img.shape[:-2], 1, -1)
+    return (masks * weights) @ masks.mT
 
 
 def components_k2(labels: torch.Tensor, mask: torch.Tensor,
@@ -72,7 +85,8 @@ def components_k2(labels: torch.Tensor, mask: torch.Tensor,
 def rag_merge(kmeans_labels: torch.Tensor, edges: torch.Tensor,
               plane_edges: torch.Tensor, valid: torch.Tensor,
               depth_m: torch.Tensor, cfg: DynaConfig) -> RagResult:
-    h, w = kmeans_labels.shape
+    h, w = kmeans_labels.shape[-2:]
+    lead = kmeans_labels.shape[:-2]
     K = _K_MAX
     dev = kmeans_labels.device
     arK = torch.arange(K, device=dev)
@@ -85,29 +99,30 @@ def rag_merge(kmeans_labels: torch.Tensor, edges: torch.Tensor,
     cid_h, _areas_h = _compact_topk(comp_h, K, float(cfg.min_cluster_area) / 4.0)
 
     # node + pairwise features at half resolution
-    h2, w2 = cid_h.shape
+    h2, w2 = cid_h.shape[-2:]
     cid_hm = torch.where(mask_h, cid_h, -1)
-    onehot = (cid_hm[None, :, :] == arK[:, None, None]).to(torch.float32)
-    M = onehot.reshape(K, h2 * w2)
+    onehot = (cid_hm[..., None, :, :] == arK[:, None, None]).to(torch.float32)
+    M = onehot.reshape(*lead, K, h2 * w2)
     ar = torch.arange(h2 * w2, device=dev)
-    ys = (ar // w2).to(torch.float32)
-    xs = (ar % w2).to(torch.float32)
-    zs = im.subsample(depth_m).reshape(-1)
+    zs = im.subsample(depth_m).reshape(*lead, -1)
+    ys = (ar // w2).to(torch.float32).expand_as(zs)
+    xs = (ar % w2).to(torch.float32).expand_as(zs)
     bin_idx = torch.clamp((zs / cfg.max_depth_m * _HIST_BINS).to(torch.int32),
                           0, _HIST_BINS - 1)
-    bin_onehot = (bin_idx[:, None] == torch.arange(_HIST_BINS, device=dev)[None, :]
+    bin_onehot = (bin_idx[..., None] == torch.arange(_HIST_BINS, device=dev)
                   ).to(torch.float32)
     feat_cols = torch.cat([torch.stack([torch.ones_like(xs), xs, ys, zs], -1),
                            bin_onehot], -1)                  # (HW/4, 4+16)
-    Fm = M @ feat_cols                                       # (K, 20)
-    cnt = Fm[:, 0]
-    centers = Fm[:, 1:4] / torch.clamp(cnt[:, None], min=1.0)
-    hist = Fm[:, 4:]
+    Fm = im.lane_matmul(M, feat_cols)                        # (K, 20)
+    cnt = Fm[..., 0]
+    centers = Fm[..., 1:4] / torch.clamp(cnt[..., None], min=1.0)
+    hist = Fm[..., 4:]
     hist_n = hist / torch.clamp(torch.sum(hist, -1, keepdim=True), min=1.0)
 
     # pairwise features via masked matmuls on dilated one-hot masks
-    dil = im._window_extreme_1d(onehot, _DILATE_ADJ_H, 1, True)
-    dil = im._window_extreme_1d(dil, _DILATE_ADJ_H, 2, True).reshape(K, h2 * w2)
+    dil = im._window_extreme_1d(onehot, _DILATE_ADJ_H, -2, True)
+    dil = im._window_extreme_1d(dil, _DILATE_ADJ_H, -1, True).reshape(
+        *lead, K, h2 * w2)
     boundary_all = _pair_counts(dil, torch.ones((h2, w2), device=dev))
     edges_wide = im.dilate(im.subsample(edges).to(torch.float32), _DILATE_ADJ_H)
     plane_wide = im.dilate(im.subsample(plane_edges).to(torch.float32),
@@ -117,17 +132,18 @@ def rag_merge(kmeans_labels: torch.Tensor, edges: torch.Tensor,
 
     eye = torch.eye(K, dtype=torch.bool, device=dev)
     node_ok = cnt > 0.5
-    pair_ok = node_ok[:, None] & node_ok[None, :] & ~eye
-    less_area = torch.minimum(cnt[:, None], cnt[None, :])
+    pair_ok = node_ok[..., :, None] & node_ok[..., None, :] & ~eye
+    less_area = torch.minimum(cnt[..., :, None], cnt[..., None, :])
     adjacent = boundary_all > torch.clamp(cfg.rag_adjacency_frac * less_area,
                                           max=cfg.rag_adjacency_min_overlap / 4.0)
 
     # histogram similarity: 0.5 * pearson + 0.5 * bhattacharyya coefficient
     hm = hist_n - torch.mean(hist_n, -1, keepdim=True)
     denom = torch.sqrt(torch.sum(hm * hm, -1))
-    correl = (hm @ hm.T) / torch.clamp(denom[:, None] * denom[None, :], min=1e-6)
+    correl = im.lane_matmul(hm, hm.mT) / torch.clamp(
+        denom[..., :, None] * denom[..., None, :], min=1e-6)
     sq = torch.sqrt(hist_n)
-    hist_sim = 0.5 * correl + 0.5 * (sq @ sq.T)
+    hist_sim = 0.5 * correl + 0.5 * im.lane_matmul(sq, sq.mT)
 
     shared = torch.clamp(boundary_all, min=1.0)
     plane_frac = boundary_plane / shared
@@ -135,7 +151,7 @@ def rag_merge(kmeans_labels: torch.Tensor, edges: torch.Tensor,
     must_merge = adjacent & (fake_frac > cfg.rag_fake_edge_overlap) & pair_ok
     plane_reject = plane_frac > 0.35
     wsmall = torch.where(less_area < 750.0, cfg.rag_small_cluster_weight, 1.0)
-    near_z = torch.minimum(centers[:, None, 2], centers[None, :, 2])
+    near_z = torch.minimum(centers[..., :, None, 2], centers[..., None, :, 2])
     wnear = torch.where(near_z < 1.5, cfg.rag_near_cluster_weight, 1.0)
     score = hist_sim * wsmall * wnear
     score = torch.where(adjacent & pair_ok & ~plane_reject
@@ -146,39 +162,40 @@ def rag_merge(kmeans_labels: torch.Tensor, edges: torch.Tensor,
     def roots_of(parent):
         r = parent
         for _ in range(5):
-            r = r[r]
+            r = torch.gather(r, -1, r)
         return r
 
     pair_okf = pair_ok.to(torch.float32)
-    parent = arK.clone()
+    parent = arK.expand(*lead, K).clone()
     for _ in range(_MERGE_STEPS):
         root = roots_of(parent)
         is_root = root == arK
-        n_roots = torch.sum(is_root & node_ok)
-        S = (root[:, None] == arK[None, :]).to(torch.float32)
-        agg = (S.T @ score) @ S
-        cnt_pairs = (S.T @ pair_okf) @ S
+        n_roots = torch.sum(is_root & node_ok, -1)
+        S = (root[..., :, None] == arK).to(torch.float32)
+        agg = (S.mT @ score) @ S
+        cnt_pairs = (S.mT @ pair_okf) @ S
         agg = torch.where(cnt_pairs > 0, agg / torch.clamp(cnt_pairs, min=1.0),
                           0.0)
-        rr_ok = is_root[:, None] & is_root[None, :] & ~eye
-        agg = torch.where(rr_ok, agg, 0.0)
-        best_flat = torch.argmax(agg)
+        rr_ok = is_root[..., :, None] & is_root[..., None, :] & ~eye
+        agg = torch.where(rr_ok, agg, 0.0).reshape(*lead, K * K)
+        best_flat = torch.argmax(agg, -1)
         bi, bj = best_flat // K, best_flat % K
-        best_score = agg[bi, bj]
+        best_score = torch.gather(agg, -1, best_flat[..., None])[..., 0]
         do = (best_score >= cfg.rag_merge_score_min) | \
             ((n_roots > 2 * cfg.n_clusters) & (best_score > 0.3))
-        hi = torch.maximum(bi, bj)
-        parent = torch.where(do & (arK == hi), torch.minimum(bi, bj), parent)
+        hi = torch.maximum(bi, bj)[..., None]
+        parent = torch.where(do[..., None] & (arK == hi),
+                             torch.minimum(bi, bj)[..., None], parent)
     root = roots_of(parent)
 
     # compact final labels 1..N
     is_root = (root == arK) & node_ok
-    final_rank = torch.cumsum(is_root.to(torch.int32), 0) * is_root
-    label_of_node = final_rank[root]
-    lbl_h = (label_of_node.to(torch.float32)[None, :] @ M
-             ).reshape(h2, w2).to(torch.int32)
-    lbl_full = torch.repeat_interleave(torch.repeat_interleave(lbl_h, 2, 0),
-                                       2, 1)[:h, :w]
+    final_rank = torch.cumsum(is_root.to(torch.int32), -1) * is_root
+    label_of_node = torch.gather(final_rank, -1, root)
+    lbl_h = (label_of_node.to(torch.float32)[..., None, :] @ M
+             ).reshape(*lead, h2, w2).to(torch.int32)
+    lbl_full = torch.repeat_interleave(torch.repeat_interleave(lbl_h, 2, -2),
+                                       2, -1)[..., :h, :w]
     label_img = torch.where(seg_mask, lbl_full, 0)
 
     # geodesic growth: unassigned valid pixels adopt a neighbouring label
@@ -189,10 +206,11 @@ def rag_merge(kmeans_labels: torch.Tensor, edges: torch.Tensor,
     label_img = torch.where(valid, label_img, 0).to(torch.int32)
 
     # aggregated root features, rescaled from half-res units to full res
-    S = (root[:, None] == arK[None, :]).to(torch.float32)
-    cnt_r = S.T @ cnt
-    centers_r = (S.T @ (centers * cnt[:, None])) / torch.clamp(cnt_r[:, None],
-                                                                min=1.0)
+    S = (root[..., :, None] == arK).to(torch.float32)
+    cnt_r = (S.mT @ cnt[..., None])[..., 0]
+    centers_r = (S.mT @ (centers * cnt[..., None])) / torch.clamp(
+        cnt_r[..., None], min=1.0)
     centers_r = centers_r * torch.tensor([2.0, 2.0, 1.0], device=dev)
-    return RagResult(label_img=label_img, n_clusters=torch.max(label_img),
+    return RagResult(label_img=label_img,
+                     n_clusters=torch.amax(label_img, (-2, -1)),
                      areas=cnt_r * 4.0, centers=centers_r)

@@ -32,21 +32,29 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# every C entry point: symbol -> (source, argtypes); all return an int
+_L = ctypes.c_longlong
+# every C entry point: symbol -> (source, argtypes); all return an int. Each
+# kernel takes a lane count B: its tensors are (B, ...) stacks
 SIGNATURES = {
+    # 10 fields, buf, B, h, w, alpha, gamma, omega, inner, sweeps, stream
     "sor_inner": ("sor_inner",
-                  [_P] * 11 + [_I, _I, _F, _F, _F, _I, _I, _P]),
+                  [_P] * 11 + [_I, _I, _I, _F, _F, _F, _I, _I, _P]),
     "sor_inner_launches": ("sor_inner", [_I, _I, _I, _I]),
-    # seed, mask, labels, mask bytes, 4 strides, buf, flags, h, w, n_sweeps,
-    # launches made (host int), stream
+    # seed, mask, labels, mask bytes, mask strides (lane, row, column),
+    # labels strides, buf, flags, B, h, w, n_sweeps, launches made (host
+    # int), stream
     "cc_labels": ("cc_labels",
-                  [_P] * 3 + [_I] * 5 + [_P, _P, _I, _I, _I, _P, _P]),
-    "cc_labels_launches": ("cc_labels", [_I, _I, _I]),
-    # img, out, H, W, levels (host ints), n_levels, min_th, ini_th, stream
-    "fast_nms": ("fast_nms", [_P, _P, _I, _I, _P, _I, _F, _F, _P]),
+                  [_P] * 3 + [_I, _L, _I, _I, _L, _I, _I, _P, _P, _I, _I, _I,
+                              _I, _P, _P]),
+    "cc_labels_launches": ("cc_labels", [_I, _I, _I, _I]),
+    # img, out, B, H, W, levels (host ints), n_levels, min_th, ini_th, stream
+    "fast_nms": ("fast_nms", [_P, _P, _I, _I, _I, _P, _I, _F, _F, _P]),
+    # img, y0, x0, out, B, N, h, w, patch, stream
     "extract_patches": ("extract_patches",
-                        [_P] * 4 + [_I, _I, _I, _I, _P]),
-    "brief_from_patches": ("extract_patches", [_P] * 6 + [_I, _I, _I, _P]),
+                        [_P] * 4 + [_I, _I, _I, _I, _I, _P]),
+    # img, y0, x0, bins, table, out, B, N, h, w, stream
+    "brief_from_patches": ("extract_patches",
+                           [_P] * 6 + [_I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -21,8 +21,14 @@ raising when the launch reports an error; there is no fallback. What bounds
 each kernel on the H100 and what its design does about it is written at the
 top of its source. ``LAUNCHES`` counts the wrapper calls that launched a
 kernel; one call may make several CUDA launches (see each source), which
-``SOR_INNER_CUDA_LAUNCHES`` counts for K1, per level shape, and
-``CC_LABELS_CUDA_LAUNCHES`` for K2, per image shape and sweep budget.
+``SOR_INNER_CUDA_LAUNCHES`` counts for K1, per input shape, and
+``CC_LABELS_CUDA_LAUNCHES`` for K2, per input shape and sweep budget.
+
+Every kernel and its plain version take one image, ``(h, w)``, or a stack
+of B lanes, ``(B, h, w)`` (the batched front-end's B frame pairs, as the
+JAX package's ``vmap`` puts a lane axis into each Pallas grid): one call
+computes every lane, lane b exactly as the same call on lane b alone, and
+an unbatched call is the one-lane case of the same kernel.
 """
 
 from __future__ import annotations
@@ -41,10 +47,11 @@ _EPS2 = 1e-6
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "sor_inner", "cc_labels", "fast_nms", "extract_patches",
     "brief_from_patches")}
-# (h, w) -> [wrapper calls, CUDA launches they made]
-SOR_INNER_CUDA_LAUNCHES: Dict[Tuple[int, int], List[int]] = {}
-# (h, w, n_sweeps) -> [wrapper calls, CUDA launches they made]
-CC_LABELS_CUDA_LAUNCHES: Dict[Tuple[int, int, int], List[int]] = {}
+# input shape ((h, w) or (B, h, w)) -> [wrapper calls, CUDA launches they
+# made]
+SOR_INNER_CUDA_LAUNCHES: Dict[Tuple[int, ...], List[int]] = {}
+# input shape + (n_sweeps,) -> [wrapper calls, CUDA launches they made]
+CC_LABELS_CUDA_LAUNCHES: Dict[Tuple[int, ...], List[int]] = {}
 
 
 def reset_launch_counts() -> None:
@@ -76,6 +83,14 @@ def _check(t: torch.Tensor, name: str, dtype, shape=None) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _lanes(t: torch.Tensor, name: str) -> int:
+    """The lane count of an (h, w) image (1) or a (B, h, w) stack (B)."""
+    if t.dim() not in (2, 3):
+        raise ValueError(f"{name}: expected (h, w) or (B, h, w), got "
+                         f"{tuple(t.shape)}")
+    return 1 if t.dim() == 2 else t.shape[0]
+
+
 def _launch(name: str, device: torch.device, *args) -> None:
     fn = _build.load(name)
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -87,16 +102,16 @@ def _launch(name: str, device: torch.device, *args) -> None:
 
 
 def _shift(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
-    """out[r, c] = x[clamp(r + dy), clamp(c + dx)] (replicate borders), for
-    |dy|, |dx| <= 1 and any dtype."""
+    """out[..., r, c] = x[..., clamp(r + dy), clamp(c + dx)] (replicate
+    borders), for |dy|, |dx| <= 1 and any dtype."""
     if dy > 0:
-        x = torch.cat([x[1:], x[-1:]], 0)
+        x = torch.cat([x[..., 1:, :], x[..., -1:, :]], -2)
     elif dy < 0:
-        x = torch.cat([x[:1], x[:-1]], 0)
+        x = torch.cat([x[..., :1, :], x[..., :-1, :]], -2)
     if dx > 0:
-        x = torch.cat([x[:, 1:], x[:, -1:]], 1)
+        x = torch.cat([x[..., 1:], x[..., -1:]], -1)
     elif dx < 0:
-        x = torch.cat([x[:, :1], x[:, :-1]], 1)
+        x = torch.cat([x[..., :1], x[..., :-1]], -1)
     return x
 
 
@@ -118,7 +133,7 @@ def sor_inner_plain(ix, iy, iz, ixx, ixy, iyy, ixz, iyz, u, v, *,
     folded sweep-invariant terms, the same red-black order, each operation
     rounded once as the kernel (built without contraction) rounds it, so
     the two agree bit for bit on the card and on the CPU."""
-    h, w = ix.shape
+    h, w = ix.shape[-2:]
     dev = ix.device
     rows = torch.arange(h, device=dev)[:, None]
     cols = torch.arange(w, device=dev)[None, :]
@@ -185,32 +200,36 @@ def sor_inner_plain(ix, iy, iz, ixx, ixy, iyy, ixz, iyz, u, v, *,
 def sor_inner(ix, iy, iz, ixx, ixy, iyy, ixz, iyz, u, v, *, alpha: float,
               gamma: float, omega: float, inner: int, sweeps: int
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One inner solve of the variational flow on a level: 10 (h, w) f32
-    fields in, (du, dv) out. Kernel: ``csrc/sor_inner.cu``."""
+    """One inner solve of the variational flow on a level: 10 f32 fields,
+    each (h, w) or a (B, h, w) stack of B levels, in; (du, dv) of their
+    shape out. Kernel: ``csrc/sor_inner.cu``."""
     fields = (ix, iy, iz, ixx, ixy, iyy, ixz, iyz, u, v)
     kw = dict(alpha=alpha, gamma=gamma, omega=omega, inner=inner,
               sweeps=sweeps)
     if _on_cpu(*fields):
         return sor_inner_plain(*fields, **kw)
-    h, w = ix.shape
+    lanes = _lanes(ix, "sor_inner")
+    shape = tuple(ix.shape)
+    h, w = shape[-2:]
     for i, t in enumerate(fields):
-        _check(t, f"sor_inner field {i}", torch.float32, (h, w))
+        _check(t, f"sor_inner field {i}", torch.float32, shape)
     if inner < 1:
         return torch.zeros_like(ix), torch.zeros_like(ix)
     n_cuda = _build.load("sor_inner_launches")(h, w, int(inner), int(sweeps))
     if n_cuda < 0:
         raise ValueError(f"sor_inner: {sweeps} sweeps need a wider halo than "
                          f"a tile of a {h}x{w} level has")
-    # two (du, dv) pairs: re-weighting k reads one and writes the other
-    buf = torch.empty((2, 2, h, w), dtype=torch.float32, device=ix.device)
+    # two (du, dv) pairs a lane: re-weighting k reads one, writes the other
+    buf = torch.empty((lanes, 2, 2, h, w), dtype=torch.float32,
+                      device=ix.device)
     ptrs = [t.data_ptr() for t in (*fields, buf)]
-    _launch("sor_inner", ix.device, *ptrs, h, w, float(alpha), float(gamma),
-            float(omega), int(inner), int(sweeps))
-    per_level = SOR_INNER_CUDA_LAUNCHES.setdefault((h, w), [0, 0])
-    per_level[0] += 1
-    per_level[1] += n_cuda
-    du, dv = buf[(inner - 1) % 2]
-    return du, dv
+    _launch("sor_inner", ix.device, *ptrs, lanes, h, w, float(alpha),
+            float(gamma), float(omega), int(inner), int(sweeps))
+    per_shape = SOR_INNER_CUDA_LAUNCHES.setdefault(shape, [0, 0])
+    per_shape[0] += 1
+    per_shape[1] += n_cuda
+    du, dv = buf[:, (inner - 1) % 2].unbind(1)
+    return (du[0], dv[0]) if ix.dim() == 2 else (du, dv)
 
 
 # ---------------------------------------------------------------- K2 -------
@@ -219,8 +238,9 @@ def cc_labels_plain(seed: Optional[torch.Tensor], mask: torch.Tensor,
                     labels: torch.Tensor, n_sweeps: int) -> torch.Tensor:
     """Exactly ``n_sweeps`` Jacobi min-label sweeps (the Pallas body of
     ``cc_labels_pallas``). Stops early only at a fixed point, after which
-    further sweeps change nothing."""
-    h, w = mask.shape
+    further sweeps change nothing (on a stack: every lane at its fixed
+    point)."""
+    h, w = mask.shape[-2:]
     big = 1 << 30
     in_img = mask.to(torch.int32) > 0
     labels = labels.to(torch.int32)
@@ -248,18 +268,20 @@ def cc_labels_plain(seed: Optional[torch.Tensor], mask: torch.Tensor,
 
 def cc_labels(seed: Optional[torch.Tensor], mask: torch.Tensor,
               labels: torch.Tensor, n_sweeps: int = 512) -> torch.Tensor:
-    """Connected components by min-label propagation on an (h, w) image:
-    int32 seeds (``None``: linear index + 1 inside the mask), a mask (bool,
-    or a number that is 0 on the background) and a cluster image (neighbours
-    connect only where equal; pass the mask itself for plain connectivity).
-    The kernel reads a bool, uint8 or int32 mask and an int32 cluster image
-    as they lie in memory, strided views too. Kernel: ``csrc/cc_labels.cu``."""
+    """Connected components by min-label propagation on an (h, w) image or
+    a (B, h, w) stack: int32 seeds (``None``: linear index + 1 inside each
+    lane's mask), a mask (bool, or a number that is 0 on the background) and
+    a cluster image (neighbours connect only where equal; pass the mask
+    itself for plain connectivity). The kernel reads a bool, uint8 or int32
+    mask and an int32 cluster image as they lie in memory, strided views
+    (and lanes) too. Kernel: ``csrc/cc_labels.cu``."""
     if _on_cpu(*(t for t in (seed, mask, labels) if t is not None)):
         return cc_labels_plain(seed, mask, labels, n_sweeps)
-    if mask.dim() != 2 or labels.shape != mask.shape:
+    lanes = _lanes(mask, "cc_labels")
+    if labels.shape != mask.shape:
         raise ValueError(f"cc_labels: mask {tuple(mask.shape)} and labels "
-                         f"{tuple(labels.shape)} must be one (h, w) shape")
-    h, w = mask.shape
+                         f"{tuple(labels.shape)} must be one shape")
+    h, w = mask.shape[-2:]
     if h * w >= (1 << 30) - 1:
         raise ValueError(f"cc_labels: {h}x{w} pixels do not fit the labels")
     if n_sweeps < 0:
@@ -275,24 +297,25 @@ def cc_labels(seed: Optional[torch.Tensor], mask: torch.Tensor,
         lab = labels if labels.dtype == torch.int32 else labels.to(torch.int32)
     if seed is not None:
         seed = seed.to(torch.int32).contiguous()
-        _check(seed, "cc_labels seed", torch.int32, (h, w))
-    n_plan = _build.load("cc_labels_launches")(h, w, int(n_sweeps))
-    buf = torch.empty((2, h, w), dtype=torch.int32, device=mask.device)
+        _check(seed, "cc_labels seed", torch.int32, mask.shape)
+    m3 = m if m.dim() == 3 else m[None]
+    lab3 = None if lab is None else lab if lab.dim() == 3 else lab[None]
+    n_plan = _build.load("cc_labels_launches")(h, w, int(n_sweeps), lanes)
+    buf = torch.empty((2, lanes, h, w), dtype=torch.int32, device=mask.device)
     flags = torch.zeros((n_plan + 1,), dtype=torch.int32, device=mask.device)
     made = ctypes.c_int(0)
     _launch("cc_labels", mask.device,
             None if seed is None else seed.data_ptr(), m.data_ptr(),
             None if lab is None else lab.data_ptr(), m.element_size(),
-            m.stride(0), m.stride(1),
-            0 if lab is None else lab.stride(0),
-            0 if lab is None else lab.stride(1),
-            buf.data_ptr(), flags.data_ptr(), h, w, int(n_sweeps),
+            *m3.stride(), *((0, 0, 0) if lab3 is None else lab3.stride()),
+            buf.data_ptr(), flags.data_ptr(), lanes, h, w, int(n_sweeps),
             ctypes.byref(made))
-    per_shape = CC_LABELS_CUDA_LAUNCHES.setdefault((h, w, int(n_sweeps)),
-                                                   [0, 0])
+    per_shape = CC_LABELS_CUDA_LAUNCHES.setdefault(
+        (*mask.shape, int(n_sweeps)), [0, 0])
     per_shape[0] += 1
     per_shape[1] += made.value
-    return buf[(made.value - 1) % 2]
+    out = buf[(made.value - 1) % 2]
+    return out[0] if mask.dim() == 2 else out
 
 
 # ---------------------------------------------------------------- K3 -------
@@ -306,11 +329,12 @@ Levels = Tuple[Tuple[int, int, int], ...]   # (y0, h, w) of each level
 
 def _shift_fill(x: torch.Tensor, dy: int, dx: int, fill: torch.Tensor
                 ) -> torch.Tensor:
-    """out[r, c] = x[r + dy, c + dx] inside the image, else fill[r, c]."""
-    h, w = x.shape
+    """out[..., r, c] = x[..., r + dy, c + dx] inside the image, else
+    fill[..., r, c]."""
+    h, w = x.shape[-2:]
     p = 3
-    xp = F.pad(x[None, None], (p, p, p, p))[0, 0]
-    out = xp[p + dy:p + dy + h, p + dx:p + dx + w]
+    xp = F.pad(x, (p, p, p, p))
+    out = xp[..., p + dy:p + dy + h, p + dx:p + dx + w]
     rows = torch.arange(h, device=x.device)[:, None] + dy
     cols = torch.arange(w, device=x.device)[None, :] + dx
     inb = (rows >= 0) & (rows < h) & (cols >= 0) & (cols < w)
@@ -368,33 +392,32 @@ def fast_nms_plain(img: torch.Tensor, min_th: float, ini_th: float,
     of ``fast_nms_pallas``), level by level; 0 outside every level."""
     if levels is None:
         return _fast_nms_level(img, min_th, ini_th)
-    levels, _ = _fast_levels(tuple(map(tuple, levels)), *img.shape)
+    levels, _ = _fast_levels(tuple(map(tuple, levels)), *img.shape[-2:])
     out = torch.zeros_like(img)
     for y0, lh, lw in levels:
-        out[y0:y0 + lh, :lw] = _fast_nms_level(img[y0:y0 + lh, :lw], min_th,
-                                               ini_th)
+        out[..., y0:y0 + lh, :lw] = _fast_nms_level(
+            img[..., y0:y0 + lh, :lw], min_th, ini_th)
     return out
 
 
 def fast_nms(img: torch.Tensor, min_th: float, ini_th: float,
              levels: Optional[Levels] = None) -> torch.Tensor:
-    """FAST score + priority mix + NMS of an (H, W) f32 image in one launch.
-    ``levels`` is the static layout ((y0, h, w), ...) of pyramid levels
-    packed into the image, level l on rows [y0, y0 + h) and columns [0, w):
-    each is scored within its own borders and everything else comes out 0.
-    ``None``: the whole image is one level. Kernel: ``csrc/fast_nms.cu``."""
+    """FAST score + priority mix + NMS of an (H, W) f32 image, or of a
+    (B, H, W) stack of them, in one launch. ``levels`` is the static layout
+    ((y0, h, w), ...) of pyramid levels packed into the image (every lane's),
+    level l on rows [y0, y0 + h) and columns [0, w): each is scored within
+    its own borders and everything else comes out 0. ``None``: the whole
+    image is one level. Kernel: ``csrc/fast_nms.cu``."""
     if _on_cpu(img):
         return fast_nms_plain(img, min_th, ini_th, levels)
     _check(img, "fast_nms img", torch.float32)
-    if img.dim() != 2:
-        raise ValueError(f"fast_nms img: expected (H, W), got "
-                         f"{tuple(img.shape)}")
-    h, w = img.shape
+    lanes = _lanes(img, "fast_nms img")
+    h, w = img.shape[-2:]
     levels, c_levels = _fast_levels(
         None if levels is None else tuple(map(tuple, levels)), h, w)
     out = torch.empty_like(img)
-    _launch("fast_nms", img.device, img.data_ptr(), out.data_ptr(), h, w,
-            c_levels, len(levels), float(min_th), float(ini_th))
+    _launch("fast_nms", img.device, img.data_ptr(), out.data_ptr(), lanes, h,
+            w, c_levels, len(levels), float(min_th), float(ini_th))
     return out
 
 
@@ -405,42 +428,50 @@ _BRIEF_PATCH = 28   # the window side the BRIEF sample table addresses
 
 def extract_patches_plain(img: torch.Tensor, y0: torch.Tensor,
                           x0: torch.Tensor, patch: int = 28) -> torch.Tensor:
-    """(N, patch, patch) windows of ``img`` at top-left corners clamped to
-    [0, dim - patch]."""
-    h, w = img.shape
+    """(N, patch, patch) windows of an (h, w) ``img`` at (N,) top-left
+    corners clamped to [0, dim - patch]; (B, N, patch, patch) of a (B, h, w)
+    stack at (B, N) corners."""
+    h, w = img.shape[-2:]
     d = torch.arange(patch, device=img.device)
-    ys = torch.clamp(y0.long(), 0, h - patch)[:, None] + d[None, :]
-    xs = torch.clamp(x0.long(), 0, w - patch)[:, None] + d[None, :]
-    return img[ys[:, :, None], xs[:, None, :]]
+    ys = torch.clamp(y0.long(), 0, h - patch)[..., None] + d
+    xs = torch.clamp(x0.long(), 0, w - patch)[..., None] + d
+    if img.dim() == 2:
+        return img[ys[:, :, None], xs[:, None, :]]
+    lane = torch.arange(img.shape[0], device=img.device)[:, None, None, None]
+    return img[lane, ys[..., :, None], xs[..., None, :]]
 
 
 def extract_patches(img: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
                     patch: int = 28) -> torch.Tensor:
     """The BRIEF patch gather: exact f32 windows of an (h, w) image at
-    (N,) int32 corners. Kernel: ``csrc/extract_patches.cu``."""
+    (N,) int32 corners, or of a (B, h, w) stack at (B, N) corners. Kernel:
+    ``csrc/extract_patches.cu``."""
     if _on_cpu(img, y0, x0):
         return extract_patches_plain(img, y0, x0, patch)
-    h, w = img.shape
-    n = y0.shape[0]
+    lanes = _lanes(img, "extract_patches img")
+    h, w = img.shape[-2:]
+    lead = tuple(img.shape[:-2])
+    n = y0.shape[-1]
     _check(img, "extract_patches img", torch.float32)
     y0 = y0.to(torch.int32).contiguous()
     x0 = x0.to(torch.int32).contiguous()
-    _check(y0, "extract_patches y0", torch.int32, (n,))
-    _check(x0, "extract_patches x0", torch.int32, (n,))
+    _check(y0, "extract_patches y0", torch.int32, (*lead, n))
+    _check(x0, "extract_patches x0", torch.int32, (*lead, n))
     if h < patch or w < patch:
         raise ValueError(f"extract_patches: image {h}x{w} smaller than patch")
-    out = torch.empty((n, patch, patch), dtype=torch.float32, device=img.device)
+    out = torch.empty((*lead, n, patch, patch), dtype=torch.float32,
+                      device=img.device)
     if n == 0:
         return out
     ptrs = [t.data_ptr() for t in (img, y0, x0, out)]
-    _launch("extract_patches", img.device, *ptrs, n, h, w, int(patch))
+    _launch("extract_patches", img.device, *ptrs, lanes, n, h, w, int(patch))
     return out
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
-    """(N, 256) bool -> (N, 8) int32 words (bit j of word i = bit 32 i + j),
-    the uint32 bit patterns of the reference stored as int32."""
-    lanes = bits.reshape(bits.shape[0], 8, 32).to(torch.int64)
+    """(..., 256) bool -> (..., 8) int32 words (bit j of word i = bit
+    32 i + j), the uint32 bit patterns of the reference stored as int32."""
+    lanes = bits.reshape(*bits.shape[:-1], 8, 32).to(torch.int64)
     shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
     words = torch.sum(lanes << shifts, -1)
     return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
@@ -452,23 +483,26 @@ def brief_from_patches_plain(img: torch.Tensor, y0: torch.Tensor,
     """The 28x28 windows, one gather of each keypoint's 512 table samples,
     the 256 ``sample j < sample 256 + j`` tests, packed."""
     patches = extract_patches_plain(img, y0, x0, _BRIEF_PATCH)
-    samples = torch.gather(patches.flatten(1), 1,
-                           table[bins.long()].long())             # (N, 512)
-    return pack_bits(samples[:, :256] < samples[:, 256:])
+    samples = torch.gather(patches.flatten(-2), -1,
+                           table[bins.long()].long())        # (..., N, 512)
+    return pack_bits(samples[..., :256] < samples[..., 256:])
 
 
 def brief_from_patches(img: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
                        bins: torch.Tensor, table: torch.Tensor
                        ) -> torch.Tensor:
     """256-bit BRIEF descriptors, (N, 8) int32 words, of the 28x28 windows
-    of an (h, w) f32 image at (N,) corners: keypoint n is tested at the
-    window-linear sample indices ``table[bins[n]]`` (a (B, 512) int32 table,
-    samples j and 256 + j making bit j). Kernel: ``csrc/extract_patches.cu``;
-    the windows stay in shared memory."""
+    of an (h, w) f32 image at (N,) corners, or (B, N, 8) of a (B, h, w)
+    stack at (B, N) corners: keypoint n is tested at the window-linear
+    sample indices ``table[bins[n]]`` (an (n_bins, 512) int32 table shared
+    by the lanes, samples j and 256 + j making bit j). Kernel:
+    ``csrc/extract_patches.cu``; the windows stay in shared memory."""
     if _on_cpu(img, y0, x0, bins, table):
         return brief_from_patches_plain(img, y0, x0, bins, table)
-    h, w = img.shape
-    n = y0.shape[0]
+    lanes = _lanes(img, "brief_from_patches img")
+    h, w = img.shape[-2:]
+    lead = tuple(img.shape[:-2])
+    n = y0.shape[-1]
     _check(img, "brief_from_patches img", torch.float32)
     _check(table, "brief_from_patches table", torch.int32,
            (table.shape[0], 512))
@@ -476,17 +510,18 @@ def brief_from_patches(img: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
     x0 = x0.to(torch.int32).contiguous()
     bins = bins.to(torch.int32).contiguous()
     for name, t in (("y0", y0), ("x0", x0), ("bins", bins)):
-        _check(t, f"brief_from_patches {name}", torch.int32, (n,))
+        _check(t, f"brief_from_patches {name}", torch.int32, (*lead, n))
     if h < _BRIEF_PATCH or w < _BRIEF_PATCH:
         raise ValueError(f"brief_from_patches: image {h}x{w} smaller than "
                          f"the {_BRIEF_PATCH}x{_BRIEF_PATCH} window")
-    out = torch.empty((n, 8), dtype=torch.int32, device=img.device)
+    out = torch.empty((*lead, n, 8), dtype=torch.int32, device=img.device)
     if n == 0:
         return out
+    # one range check (one host synchronisation) for all the lanes
     lo, hi = torch.stack(torch.aminmax(bins)).tolist()
     if lo < 0 or hi >= table.shape[0]:
         raise ValueError(f"brief_from_patches: bins span [{lo}, {hi}], the "
                          f"table has {table.shape[0]} rows")
     ptrs = [t.data_ptr() for t in (img, y0, x0, bins, table, out)]
-    _launch("brief_from_patches", img.device, *ptrs, n, h, w)
+    _launch("brief_from_patches", img.device, *ptrs, lanes, n, h, w)
     return out

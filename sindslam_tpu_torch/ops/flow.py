@@ -5,6 +5,11 @@ outer iterations warp the target by the current flow and linearize, and the
 inner solve (lagged psi' re-weighting + red-black SOR) runs in kernel K1
 (``cuda_kernels.sor_inner``). One path: the kernel on CUDA, its plain
 version on the CPU; the warp is the gather form everywhere.
+
+The stateless solve (``variational_flow``, ``flow_at_working_scale`` and
+the pyramid helpers) also takes (B, H, W) stacks of lanes: each level then
+makes one K1 call for all the lanes, and lane b is computed exactly as the
+same call on lane b alone.
 """
 
 from __future__ import annotations
@@ -89,10 +94,10 @@ def _solve_pyramid_range(pyr1: Sequence[torch.Tensor],
     0 = finest); ``u, v`` are upsampled (with magnitude rescale) into each
     level."""
     for li in range(start_level, end_level - 1, -1):
-        lh, lw = pyr1[li].shape
-        if tuple(u.shape) != (lh, lw):
-            su = lw / u.shape[1]
-            sv = lh / u.shape[0]
+        lh, lw = pyr1[li].shape[-2:]
+        if tuple(u.shape[-2:]) != (lh, lw):
+            su = lw / u.shape[-1]
+            sv = lh / u.shape[-2]
             u = im.resize_bilinear(u, (lh, lw)) * su
             v = im.resize_bilinear(v, (lh, lw)) * sv
         n_outer = (cfg.outer_iterations_fine if li < cfg.n_fine_levels
@@ -103,14 +108,15 @@ def _solve_pyramid_range(pyr1: Sequence[torch.Tensor],
 
 def variational_flow(img1_gray: torch.Tensor, img2_gray: torch.Tensor,
                      cfg: FlowConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dense flow img1 -> img2 on (H, W) grayscale in [0, 255]; (u, v) at
-    the input resolution."""
-    h, w = img1_gray.shape
+    """Dense flow img1 -> img2 on (H, W) grayscale in [0, 255], or on each
+    lane of (B, H, W) stacks; (u, v) at the input resolution."""
+    h, w = img1_gray.shape[-2:]
     shapes = pyramid_shapes(h, w, cfg.pyramid_scale, cfg.n_levels)
     pyr1 = _build_pyramid(_preprocess(img1_gray), shapes)
     pyr2 = _build_pyramid(_preprocess(img2_gray), shapes)
     ch, cw = shapes[-1]
-    u = torch.zeros((ch, cw), dtype=torch.float32, device=img1_gray.device)
+    u = torch.zeros((*img1_gray.shape[:-2], ch, cw), dtype=torch.float32,
+                    device=img1_gray.device)
     v = torch.zeros_like(u)
     return _solve_pyramid_range(pyr1, pyr2, u, v, cfg, len(shapes) - 1, 0)
 
@@ -206,8 +212,8 @@ def flow_at_working_scale(rgb1_gray_full: torch.Tensor,
                           rgb2_gray_full: torch.Tensor, cfg: FlowConfig
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flow at the working canvas, upsampled back to full resolution with
-    magnitude rescale."""
-    H, W = rgb1_gray_full.shape
+    magnitude rescale. (B, H, W) stacks: every lane in one solve."""
+    H, W = rgb1_gray_full.shape[-2:]
     wh, ww = cfg.working_height, cfg.working_width
     g1 = im.resize_bilinear(rgb1_gray_full, (wh, ww))
     g2 = im.resize_bilinear(rgb2_gray_full, (wh, ww))

@@ -4,17 +4,81 @@ Port of the subset of ``sindslam_tpu/ops/image.py`` that ``frontend_step``
 reaches. Layout is (H, W) or (H, W, C) float32 unless noted. The TPU-only
 forms (the one-hot-matmul warp, subsample and block-OR) are not ported:
 Hopper gathers and strided slices are cheap, so each op has one form.
+
+Every image op also takes a (B, H, W) stack of lanes (the batched
+front-end's B frame pairs) and computes lane b exactly as the same call on
+lane b alone; the thresholds take (B, bins) histograms. The lane helpers
+below serve the whole batched front-end.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Tuple
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def _stack(outs: list):
+    first = outs[0]
+    if isinstance(first, tuple):
+        parts = [torch.stack(p) for p in zip(*outs)]
+        return type(first)(*parts) if hasattr(first, "_fields") else tuple(parts)
+    return torch.stack(outs)
+
+
+def per_lane(rank: int) -> Callable:
+    """Decorator for a function of one lane whose first argument has
+    ``rank`` axes: given (B, ...) stacks instead, it runs on each lane in
+    turn (tensor arguments indexed, the others shared) and stacks the
+    results. For the library calls that round a lane of a stack otherwise
+    than the same call on the lane alone: on the H100, cuBLAS picks a
+    product's kernel, and with it the order of its sums, by the shape of
+    the whole stack; sums over an image and the cumulative sum of one row
+    (cub's scan) are split otherwise too
+    (``tools/torch_probe_lane_rounding.py`` lists the calls that part)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            if args[0].dim() == rank:
+                return fn(*args, **kwargs)
+            return _stack([fn(*(a[b] if isinstance(a, torch.Tensor) else a
+                                for a in args), **kwargs)
+                           for b in range(args[0].shape[0])])
+        return run
+    return wrap
+
+
+# a product of one lane's matrices, or of each lane's in turn
+lane_matmul = per_lane(2)(torch.matmul)
+
+
+def lane_index(x: torch.Tensor, idx: torch.Tensor, batched: bool
+               ) -> torch.Tensor:
+    """``x[idx]`` of one lane; of a stack, ``x[b][idx[b]]`` for every lane
+    b (``idx`` indexes the axis after the lane axis)."""
+    if not batched:
+        return x[idx]
+    lane = torch.arange(x.shape[0], device=x.device)
+    return x[lane.reshape(-1, *(1,) * (idx.dim() - 1)), idx]
+
+
+def segment_sum(values: torch.Tensor, ids: torch.Tensor, n: int
+                ) -> torch.Tensor:
+    """float32 sums of ``values`` over segment ids in [0, n): (M,) ids give
+    (n,), (B, M) ids (n,) a lane, lane b's ids offset into a range of its
+    own (id + b n) of one ``index_add_``."""
+    ids = ids.long()
+    if ids.dim() == 2:
+        ids = ids + n * torch.arange(ids.shape[0], device=ids.device)[:, None]
+    out = torch.zeros((*ids.shape[:-1], n), dtype=torch.float32,
+                      device=values.device)
+    out.view(-1).index_add_(0, ids.reshape(-1),
+                            values.reshape(-1).to(torch.float32))
+    return out
 
 
 def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
@@ -33,20 +97,27 @@ def _gaussian_kernel1d(sigma: float, ksize: int) -> list:
     return (k / torch.sum(k)).tolist()
 
 
+def pad_replicate(img: torch.Tensor, pads: Tuple[int, int, int, int]
+                  ) -> torch.Tensor:
+    """Replicate padding (left, right, top, bottom) of the last two axes of
+    an (H, W) image or a (B, H, W) stack."""
+    return F.pad(img.unsqueeze(-3), pads, mode="replicate").squeeze(-3)
+
+
 def _sep_conv2d(img: torch.Tensor, ky, kx) -> torch.Tensor:
     """Separable 2-D convolution with replicate padding on an (H, W) image,
     as the same shift-and-add sum (same tap order) as the reference."""
-    h, w = img.shape
+    h, w = img.shape[-2:]
     ry = len(ky) // 2
     rx = len(kx) // 2
-    xp = F.pad(img[None, None], (0, 0, ry, ry), mode="replicate")[0, 0]
-    out = ky[0] * xp[0:h, :]
+    xp = pad_replicate(img, (0, 0, ry, ry))
+    out = ky[0] * xp[..., 0:h, :]
     for i in range(1, len(ky)):
-        out = out + ky[i] * xp[i:i + h, :]
-    xp = F.pad(out[None, None], (rx, rx, 0, 0), mode="replicate")[0, 0]
-    out = kx[0] * xp[:, 0:w]
+        out = out + ky[i] * xp[..., i:i + h, :]
+    xp = pad_replicate(out, (rx, rx, 0, 0))
+    out = kx[0] * xp[..., 0:w]
     for i in range(1, len(kx)):
-        out = out + kx[i] * xp[:, i:i + w]
+        out = out + kx[i] * xp[..., i:i + w]
     return out
 
 
@@ -64,16 +135,17 @@ def box_filter(img: torch.Tensor, ksize: int) -> torch.Tensor:
 
 
 def subsample(x: torch.Tensor, stride: int = 2) -> torch.Tensor:
-    """``x[::stride, ::stride]``."""
-    return x[::stride, ::stride]
+    """``x[..., ::stride, ::stride]``."""
+    return x[..., ::stride, ::stride]
 
 
 def block_or2(x: torch.Tensor) -> torch.Tensor:
     """2x2 block OR of a bool image (the OR of its four phase slices)."""
-    h, w = x.shape
+    h, w = x.shape[-2:]
     h2, w2 = -(-h // 2), -(-w // 2)
     p = F.pad(x.to(torch.uint8), (0, w2 * 2 - w, 0, h2 * 2 - h)) > 0
-    return p[::2, ::2] | p[1::2, ::2] | p[::2, 1::2] | p[1::2, 1::2]
+    return (p[..., ::2, ::2] | p[..., 1::2, ::2] | p[..., ::2, 1::2]
+            | p[..., 1::2, 1::2])
 
 
 def _resize_weights_np(n_in: int, n_out: int) -> np.ndarray:
@@ -106,12 +178,14 @@ def _resize_weights(n_in: int, n_out: int, device: torch.device
     return torch.from_numpy(_resize_weights_np(n_in, n_out)).to(device)
 
 
+@per_lane(2)
 def resize_bilinear(img: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize of an (H, W) image to ``shape``, equal to
-    ``jax.image.resize(method="linear")``: it antialiases (a stretched
-    triangle filter) when it downsamples. Two fp32 weight-matrix products."""
+    """Bilinear resize of an (H, W) image (a (B, H, W) stack lane by lane)
+    to ``shape``, equal to ``jax.image.resize(method="linear")``: it
+    antialiases (a stretched triangle filter) when it downsamples. Two fp32
+    weight-matrix products."""
     img = img.to(torch.float32)
-    h, w = img.shape
+    h, w = img.shape[-2:]
     nh, nw = shape
     out = img
     if nh != h:
@@ -126,8 +200,9 @@ def warp_bilinear(img: torch.Tensor, coords_y: torch.Tensor,
     """Sample ``img`` (H, W) at float coords; returns (samples, in-bounds).
 
     Out-of-bounds coordinates are clamped; the mask marks pixels whose
-    unclamped coordinate lay inside the image."""
-    h, w = img.shape
+    unclamped coordinate lay inside the image. A (B, H, W) stack is sampled
+    lane by lane at (B, ...) coordinates."""
+    h, w = img.shape[-2:]
     inb = ((coords_y >= 0) & (coords_y <= h - 1) & (coords_x >= 0)
            & (coords_x <= w - 1))
     cy = torch.clamp(coords_y, 0.0, h - 1.0)
@@ -138,11 +213,16 @@ def warp_bilinear(img: torch.Tensor, coords_y: torch.Tensor,
     x1 = torch.clamp(x0 + 1, max=w - 1)
     fy = cy - y0.to(cy.dtype)
     fx = cx - x0.to(cx.dtype)
-    flat = img.reshape(-1)
-    v00 = flat[y0 * w + x0]
-    v01 = flat[y0 * w + x1]
-    v10 = flat[y1 * w + x0]
-    v11 = flat[y1 * w + x1]
+    flat = img.reshape(*img.shape[:-2], h * w)
+
+    def at(y, x):
+        idx = (y * w + x).reshape(*img.shape[:-2], -1)
+        return torch.gather(flat, -1, idx).reshape(y.shape)
+
+    v00 = at(y0, x0)
+    v01 = at(y0, x1)
+    v10 = at(y1, x0)
+    v11 = at(y1, x1)
     out = (v00 * (1 - fy) * (1 - fx) + v01 * (1 - fy) * fx
            + v10 * fy * (1 - fx) + v11 * fy * fx)
     return out, inb
@@ -151,18 +231,18 @@ def warp_bilinear(img: torch.Tensor, coords_y: torch.Tensor,
 def warp_by_flow(img: torch.Tensor, flow_u: torch.Tensor, flow_v: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backward-warp: sample img at (y + v, x + u)."""
-    h, w = img.shape
+    h, w = img.shape[-2:]
     ys = torch.arange(h, dtype=torch.float32, device=img.device)[:, None]
     xs = torch.arange(w, dtype=torch.float32, device=img.device)[None, :]
     return warp_bilinear(img, ys + flow_v, xs + flow_u)
 
 
 def _windows(img: torch.Tensor, ksize: int) -> torch.Tensor:
-    """(H, W, ksize*ksize) replicate-padded square neighbourhoods."""
+    """(..., H, W, ksize*ksize) replicate-padded square neighbourhoods."""
     r = ksize // 2
-    h, w = img.shape
-    p = F.pad(img[None, None], (r, r, r, r), mode="replicate")[0, 0]
-    return torch.stack([p[dy:dy + h, dx:dx + w]
+    h, w = img.shape[-2:]
+    p = pad_replicate(img, (r, r, r, r))
+    return torch.stack([p[..., dy:dy + h, dx:dx + w]
                         for dy in range(ksize) for dx in range(ksize)], -1)
 
 
@@ -202,8 +282,8 @@ def _window_extreme_1d(x: torch.Tensor, k: int, axis: int, op_max: bool
 
 
 def _window_reduce(img: torch.Tensor, ksize: int, op_max: bool) -> torch.Tensor:
-    out = _window_extreme_1d(img, ksize, img.ndim - 2, op_max)
-    return _window_extreme_1d(out, ksize, img.ndim - 1, op_max)
+    out = _window_extreme_1d(img, ksize, -2, op_max)
+    return _window_extreme_1d(out, ksize, -1, op_max)
 
 
 def dilate(img: torch.Tensor, ksize: int = 3, iterations: int = 1) -> torch.Tensor:
@@ -222,7 +302,7 @@ def dilate_ellipse(img: torch.Tensor, ksize: int, iterations: int = 1
     reference driver's ``cv::dilate(..., MORPH_ELLIPSE)``: max over disc rows
     of a vertically shifted 1-D window max of that row's run width."""
     r = ksize // 2
-    h, w = img.shape
+    h, w = img.shape[-2:]
     x = img.to(torch.float32)
     half = [int(math.floor((r + 0.5) * math.sqrt(
         max(0.0, 1.0 - (dy / (r + 0.5)) ** 2)))) for dy in range(-r, r + 1)]
@@ -230,14 +310,15 @@ def dilate_ellipse(img: torch.Tensor, ksize: int, iterations: int = 1
         row_max = {}
         for hw in half:
             if hw not in row_max:
-                row_max[hw] = _window_extreme_1d(x, 2 * hw + 1, 1, True)
+                row_max[hw] = _window_extreme_1d(x, 2 * hw + 1, -1, True)
         acc = None
         for dy, hw in zip(range(-r, r + 1), half):
             m = row_max[hw]
             if dy != 0:
-                pad = torch.full((abs(dy), w), -math.inf, device=x.device)
-                m = (torch.cat([m[dy:], pad], 0) if dy > 0
-                     else torch.cat([pad, m[:h + dy]], 0))
+                pad = torch.full((*x.shape[:-2], abs(dy), w), -math.inf,
+                                 device=x.device)
+                m = (torch.cat([m[..., dy:, :], pad], -2) if dy > 0
+                     else torch.cat([pad, m[..., :h + dy, :]], -2))
             acc = m if acc is None else torch.maximum(acc, m)
         x = acc
     return x.to(img.dtype)
@@ -252,15 +333,18 @@ def local_max_abs_diff(img: torch.Tensor, ksize: int = 5) -> torch.Tensor:
 
 def image_gradients(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Central-difference gradients (dx, dy) with replicate borders."""
-    p = F.pad(img[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
-    h, w = img.shape
-    dx = (p[1:h + 1, 2:] - p[1:h + 1, :w]) * 0.5
-    dy = (p[2:, 1:w + 1] - p[:h, 1:w + 1]) * 0.5
+    p = pad_replicate(img, (1, 1, 1, 1))
+    h, w = img.shape[-2:]
+    dx = (p[..., 1:h + 1, 2:] - p[..., 1:h + 1, :w]) * 0.5
+    dy = (p[..., 2:, 1:w + 1] - p[..., :h, 1:w + 1]) * 0.5
     return dx, dy
 
 
+@per_lane(1)
 def otsu_threshold(hist: torch.Tensor) -> torch.Tensor:
-    """Otsu's threshold (bin index, float) from a histogram."""
+    """Otsu's threshold (bin index, float) from a histogram (a (B, bins)
+    stack lane by lane: the card scans one histogram with cub, a stack
+    otherwise)."""
     hist = hist.to(torch.float32)
     total = torch.sum(hist) + 1e-12
     p = hist / total
@@ -277,15 +361,16 @@ def otsu_threshold(hist: torch.Tensor) -> torch.Tensor:
 
 def triangle_threshold(hist: torch.Tensor) -> torch.Tensor:
     """Triangle-method threshold (bin index, float): the bin farthest from
-    the line between the histogram peak and the far non-empty end."""
+    the line between the histogram peak and the far non-empty end; one per
+    lane of a (B, bins) stack."""
     hist = hist.to(torch.float32)
-    n = hist.shape[0]
+    n = hist.shape[-1]
     bins = torch.arange(n, dtype=torch.float32, device=hist.device)
-    peak = torch.argmax(hist).to(torch.float32)
-    hpeak = torch.max(hist)
+    peak = torch.argmax(hist, -1, keepdim=True).to(torch.float32)
+    hpeak = torch.amax(hist, -1, keepdim=True)
     nz = hist > 0
-    first = torch.min(torch.where(nz, bins, float(n)))
-    last = torch.max(torch.where(nz, bins, -1.0))
+    first = torch.amin(torch.where(nz, bins, float(n)), -1, keepdim=True)
+    last = torch.amax(torch.where(nz, bins, -1.0), -1, keepdim=True)
     right_len = last - peak
     left_len = peak - first
     use_right = right_len >= left_len
@@ -297,4 +382,4 @@ def triangle_threshold(hist: torch.Tensor) -> torch.Tensor:
                           (bins < peak) & (bins > first - 1) & (bins > end))
     dist = torch.abs(dy * (bins - peak) - dx * (hist - hpeak)) / norm
     dist = torch.where(between & nz, dist, -1.0)
-    return torch.argmax(dist).to(torch.float32)
+    return torch.argmax(dist, -1).to(torch.float32)

@@ -11,21 +11,24 @@ mask precompute, multi-camera rigs and multi-sequence evaluation.
 The JAX package shards the batch over a device mesh (``make_mesh``, here
 from ``parallel/launch.py``); given a ``mesh`` under ``launch.spawn``, rank
 r runs lanes ``mesh.shard(B)`` and every rank gets all B lanes' outputs
-(one all-gather each). Within a device the CUDA kernel wrappers take one
-2-D image each, so its lanes run one after another on its stream.
+(one all-gather each).
 
 - ``batch_frontend_step(cfg, device=None, mesh=None)`` builds the stateless
   batched step: flow + cold k-means + edges + RAG merge + residual mask
   (weight map of ones) + fusion (no persistence) + masked ORB for B frame
-  pairs. Lane b's RANSAC draws are ``gumbel[b]`` (tests pass the
-  reference's ``jax.random`` draws) or the b-th of B draws made from one
+  pairs. Within a device it is one program over the rank's lanes, as JAX's
+  ``vmap`` of ``_single_pair``: ``single_pair`` takes the (B, H, W, ...)
+  stacks, every module of it a lane axis, and each of K1-K4 one call for
+  all the lanes; lane b equals ``single_pair`` on pair b alone. Lane b's
+  RANSAC draws are ``gumbel[b]`` (tests pass the reference's
+  ``jax.random`` draws) or the b-th of B draws made from one
   ``torch.Generator`` before any lane runs: a lane's result does not depend
   on the number of devices.
 - ``batch_temporal_frontend(cfg, device=None, mesh=None)`` builds the
   stateful one: each lane runs the real ``frontend_step`` (temporal
   flow-pyramid cache, large-motion fallback, k-means warm start,
   persistence) over its own window, from ``init_state(seed=0)`` like every
-  JAX lane's ``PRNGKey(0)``.
+  JAX lane's ``PRNGKey(0)``; its lanes run one after another.
 - ``step_on_mesh`` and ``temporal_on_mesh`` are the two as rank functions
   for ``launch.spawn``.
 """
@@ -57,7 +60,9 @@ def single_pair(rgb: torch.Tensor, rgb_prev: torch.Tensor,
                 depth: torch.Tensor, gumbel: torch.Tensor, cfg: SystemConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor, OrbFeatures]:
     """Stateless per-pair front-end (no temporal warm start): (mask, labels,
-    features) of ``rgb`` against ``rgb_prev``."""
+    features) of ``rgb`` against ``rgb_prev``. (B, H, W, 3) stacks of pairs
+    with (B, H, W) depths and (B, ransac_iters, N) draws: every lane in one
+    call, the outputs (B, ...)."""
     gray = im.rgb_to_gray(rgb)
     gray_prev = im.rgb_to_gray(rgb_prev)
     valid = (depth > 0.05) & (depth <= cfg.dyna.max_depth_m)
@@ -71,8 +76,9 @@ def single_pair(rgb: torch.Tensor, rgb_prev: torch.Tensor,
                             gumbel, depth_m=depth)
     # fusion with no persistence: zero previous evidence, no flow warp
     zeros = torch.zeros_like(gray)
-    wz = torch.zeros((cfg.flow.working_height, cfg.flow.working_width),
-                     dtype=torch.float32, device=gray.device)
+    wz = torch.zeros((*gray.shape[:-2], cfg.flow.working_height,
+                      cfg.flow.working_width), dtype=torch.float32,
+                     device=gray.device)
     fu = fuse_masks(fm.low_mask, fm.high_mask, torch.zeros_like(valid),
                     rr.label_img, valid, cfg.dyna, prev_ratio_img=zeros,
                     prev_dyn_score=zeros, prev_dyn_depth=depth, depth_m=depth,
@@ -80,10 +86,6 @@ def single_pair(rgb: torch.Tensor, rgb_prev: torch.Tensor,
     feats = extract_orb(gray, fu.dyna_mask, cfg.orb,
                         height=cfg.camera.height, width=cfg.camera.width)
     return fu.dyna_mask, rr.label_img, feats
-
-
-def _stack_features(feats) -> OrbFeatures:
-    return OrbFeatures(*(torch.stack(f) for f in zip(*feats)))
 
 
 def _own(mesh: Optional[Mesh], n_lanes: int) -> slice:
@@ -118,11 +120,8 @@ def batch_frontend_step(cfg: SystemConfig, device=None,
                              generator.device) for _ in range(rgbs.shape[0])])
         rgbs, rgbs_prev = rgbs[own].to(dev), rgbs_prev[own].to(dev)
         depths = depths[own].to(dev, torch.float32)
-        outs = [single_pair(rgbs[i], rgbs_prev[i], depths[i], g.to(dev), cfg)
-                for i, g in enumerate(gumbel[own])]
-        masks, labels, feats = zip(*outs)
-        masks, labels = torch.stack(masks), torch.stack(labels)
-        feats = _stack_features(feats)
+        masks, labels, feats = single_pair(rgbs, rgbs_prev, depths,
+                                           gumbel[own].to(dev), cfg)
         return (all_gather_lanes(masks, mesh), all_gather_lanes(labels, mesh),
                 OrbFeatures(*(all_gather_lanes(f, mesh) for f in feats)))
 

@@ -12,7 +12,9 @@ its plain version rounds) against the plain version on the card and on the
 CPU, in both of its regimes (one block for a small level, tiles with a halo
 for a large one), K2-K4 and the fused BRIEF: K2 at budgets under, at and between
 multiples of its sweeps per launch and where the budget binds, K3 on one
-level and on an atlas of levels in one launch. Tracking on the card is held
+level and on an atlas of levels in one launch; each kernel on a stack of
+lanes against its plain version and against itself on each lane alone,
+with K2's CUDA launches for tiles x lanes. Tracking on the card is held
 against tracking on the CPU by the check ``chip_smoke.py`` runs: equal match
 indices, inlier sets and packed words, poses within 1e-4; local and global
 bundle adjustment on the card against the CPU by ``chip_smoke.py``'s BA
@@ -574,3 +576,58 @@ def test_random_draws_on_the_card_equal_the_cpu(cuda_device):
     vg = train_vocabulary(descs, k=10, levels=3, device=cuda_device)
     for a, b in zip(vc.nodes, vg.nodes):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 3])
+def test_batched_kernels_match_plain_lane_by_lane(cuda_device, lanes):
+    """Each kernel on a (B, h, w) stack (K2 on strided lane views) equals
+    its plain version on the stack and the kernel on each lane alone, bit
+    for bit; one wrapper call a stack, and K2's CUDA launches follow its
+    wave rule for tiles x lanes."""
+    dev = cuda_device
+    rng = np.random.default_rng(5)
+    per_lane = [_level_data(79, 105, 3 + b) for b in range(lanes)]
+    fields = [torch.from_numpy(np.stack(f)).to(dev) for f in zip(*per_lane)]
+    kw = dict(alpha=0.197, gamma=50.0, omega=1.9, inner=3, sweeps=8)
+    mask_full = torch.from_numpy(rng.random((lanes, 480, 640)) < 0.8).to(dev)
+    lab_full = torch.from_numpy((rng.random((lanes, 480, 640)) * 2).astype(
+        np.int32)).to(dev)
+    img = torch.from_numpy((rng.random((lanes, 96, 130)) * 255).astype(
+        np.float32)).to(dev)
+    corners = [torch.randint(0, 96 - 28, (lanes, 37), dtype=torch.int32,
+                             device=dev),
+               torch.randint(0, 130 - 28, (lanes, 37), dtype=torch.int32,
+                             device=dev),
+               torch.randint(0, 64, (lanes, 37), dtype=torch.int32, device=dev)]
+    table = torch.randint(0, 28 * 28, (64, 512), dtype=torch.int32, device=dev)
+    cases = [
+        (lambda *f: ck.sor_inner(*f, **kw), lambda *f: ck.sor_inner_plain(
+            *f, **kw), fields),
+        (lambda m, lab: ck.cc_labels(None, m, lab, n_sweeps=40),
+         lambda m, lab: ck.cc_labels_plain(None, m, lab, 40),
+         [mask_full[:, ::2, ::2], lab_full[:, ::2, ::2]]),
+        (lambda x: ck.fast_nms(x, 7.0, 20.0),
+         lambda x: ck.fast_nms_plain(x, 7.0, 20.0), [img]),
+        (ck.extract_patches, ck.extract_patches_plain, [img, *corners[:2]]),
+        (lambda *a: ck.brief_from_patches(*a, table),
+         lambda *a: ck.brief_from_patches_plain(*a, table), [img, *corners]),
+    ]
+    for kern, plain, args in cases:
+        ck.reset_launch_counts()
+        got = kern(*args)
+        assert sum(ck.LAUNCHES.values()) == 1
+        got = got if isinstance(got, tuple) else (got,)
+        ref = plain(*args)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for b in range(lanes):
+            alone = kern(*(a[b] for a in args))
+            alone = alone if isinstance(alone, tuple) else (alone,)
+            for g, r, a in zip(got, ref, alone):
+                assert torch.equal(g, r) and torch.equal(g[b], a)
+    ck.reset_launch_counts()
+    ck.cc_labels(None, mask_full[:, ::2, ::2], lab_full[:, ::2, ::2],
+                 n_sweeps=768)
+    k = 16 if lanes == 1 else 8      # 80 tiles, or 3 x 35 at a halo of 8
+    assert ck.CC_LABELS_CUDA_LAUNCHES == {(lanes, 240, 320, 768):
+                                          [1, 768 // k]}

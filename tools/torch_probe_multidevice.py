@@ -52,7 +52,8 @@ def main() -> int:
     depths = [torch.from_numpy(f[1]).to(dev) for f in frames]
     print(f"[build and frames: {time.perf_counter() - t0:.1f} s]", flush=True)
     t0 = time.perf_counter()
-    batch_ref, temporal_ref = cs.phase_batch(torch, dev, cfg, rgbs, depths)
+    batch_ref, temporal_ref, _kernels = cs.phase_batch(torch, dev, cfg, rgbs,
+                                                       depths)
     print(f"[phase 16: {time.perf_counter() - t0:.1f} s]", flush=True)
     t0 = time.perf_counter()
     cs.phase_multidevice(torch, dev, cfg, rgbs, depths, batch_ref,
