@@ -115,16 +115,26 @@
    pair on the card against the CPU;
 16. runs ``batch_frontend_step`` on 4 pairs of the phase-3 frames (one
    program over the 4 lanes: each of K1-K4 one call for all of them) and
-   ``batch_temporal_frontend`` on 2 lanes x 4 frames, each with the counters
-   zeroed before and read after, under deterministic sums, and holds each
-   lane equal to the same pair or window run alone on the card and the
-   batched step's K1-K4 wrapper calls equal to one pair's (its CUDA
-   launches printed beside them); holds each batched kernel call, its
-   inputs recorded at one call site each, bit for bit to its plain version
-   on the card, and times both beside its bound; times the batched call
-   against the loop of ``single_pair`` over its lanes at B = 4 and 8 (the
-   second call of each, in turns) and prints ms a pair and peak device
-   memory;
+   ``batch_temporal_frontend`` on 4 lanes x 4 frames (three windows of the
+   phase-3 frames and one 640x480 ``fast_cam`` window, whose regime flips;
+   one ``frontend_step`` call a step for all the lanes), each with the
+   counters zeroed before and read after, under deterministic sums, and
+   holds each lane equal to the same pair or window run alone on the card,
+   the batched step's K1-K4 wrapper calls equal to one pair's (its CUDA
+   launches printed beside them), the temporal step's K2, K3 and fused K4
+   calls equal to one lane's at every step and its K1 calls one lane's but
+   for the restart solve of a step where only some lanes flipped, the
+   temporal step's host reads of the regime decision at most one a step
+   (every host synchronisation a step counted by origin under
+   ``torch.cuda.set_sync_debug_mode``), and the lanes' regimes apart at
+   some step; holds each batched kernel call, its inputs recorded at one
+   call site each, bit for bit to its plain version on the card, and times
+   both beside its bound (the fused K4 also beside the chain of PyTorch
+   calls it replaces); times the batched call against the loop of
+   ``single_pair`` over its lanes at B = 4 and 8, and the temporal call
+   against ``frontend_step`` over each lane in turn (the second call of
+   each, in turns), and prints ms a pair or a frame, peak device memory and
+   the host time of the temporal lanes' draws;
 17. runs the multi-device paths over a process group of
    ``torch.cuda.device_count()`` ranks on NCCL, one process a card
    (``parallel/launch.py``'s ``spawn``), and prints the world size:
@@ -262,9 +272,12 @@ STEREO_FRAMES, STEREO_SEED, STEREO_AMPLITUDE = 10, 7, 0.2
 STEREO_ATE_M, STEREO_MEDIAN_REL, STEREO_WITHIN_15 = 0.08, 0.05, 0.8
 JAX_STEREO = dict(keyframes=4, map_points=442, ate_m=0.041633)
 STEREO_DEPTH_RTOL = 1e-5
-# Phase 16: the batched front-end, B pairs and lanes x frames of dyn_walk
+# Phase 16: the batched front-end, B pairs of dyn_walk frames, and lanes x
+# frames: windows of the phase-3 dyn_walk frames and one window as long of
+# TEMPORAL_FAST (sequence, seed), whose regime flips to n->n-1
 BATCH_PAIRS = ((2, 1), (4, 3), (6, 5), (8, 7))
-TEMPORAL_LANES = ((0, 1, 2, 3), (4, 5, 6, 7))
+TEMPORAL_LANES = ((0, 1, 2, 3), (4, 5, 6, 7), (8, 9, 10, 11))
+TEMPORAL_FAST = ("fast_cam", 1)
 # Phase 17: the observation-sharded global BA at the configured caps on a
 # seeded problem; at 1 rank equal to the unsharded solve bit for bit, and on
 # any mesh held to tests/test_gba_multichip.py's tolerances (poses, mean
@@ -1846,6 +1859,25 @@ def lanes_of(torch, name, args, b):
     return [memo.get(id(a), a) for a in args]
 
 
+def lane_brief_chain(torch, ck, img, y0, x0, bins, table):
+    """The chain of PyTorch calls the fused K4 replaces (phase 3's, with a
+    lane index): the windows of each lane's (h, w) image by one indexing
+    call on a strided view, the table lookup, the gather, the compare and
+    the pack; a function of no arguments."""
+    P = 28
+    n_lanes, n = y0.shape
+    windows = img.unfold(-2, P, 1).unfold(-2, P, 1)
+    lane = torch.arange(n_lanes, device=img.device)[:, None]
+    yl, xl = y0.long(), x0.long()
+
+    def chain():
+        samples = torch.gather(windows[lane, yl, xl].reshape(n_lanes, n,
+                                                             P * P),
+                               -1, table[bins.long()].long())
+        return ck.pack_bits(samples[..., :256] < samples[..., 256:])
+    return chain
+
+
 def batched_kernels(torch, ck, rec, n_lanes, counts):
     """Phase 16: each kernel's batched call as the batched step made it (the
     inputs recorded at one call site each: K1 at the finest level, K2 in
@@ -1888,9 +1920,18 @@ def batched_kernels(torch, ck, rec, n_lanes, counts):
         bound = bound_ms(*work)
         ms = time_ms(torch, lambda: kern(*args, **kw), 20)
         plain_ms = time_ms(torch, lambda: plain(*args, **kw), 2)
+        library_ms = None
+        if name == "brief_from_patches":
+            chain = lane_brief_chain(torch, ck, *args[:5])
+            check(torch.equal(chain(), ref[0]),
+                  "batched PyTorch BRIEF chain differs from plain")
+            library_ms = time_ms(torch, chain, 20)
+            print(f"batched brief_from_patches chain of PyTorch calls "
+                  f"(unfold + index, table lookup, gather, compare, pack) on "
+                  f"the {n_lanes} lanes: {library_ms:.4f} ms", flush=True)
         out[name] = dict(lanes=n_lanes, launches=counts[name], max_abs_err=0.0,
                          ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
-                         bound_by=bound[1])
+                         bound_by=bound[1], library_ms=library_ms)
         print(f"batched {key} {tuple(args[1 if name == 'cc_labels' else 0].shape)}: "
               f"kernel == plain bit for bit; {ms:.4f} ms, plain {plain_ms:.4f} "
               f"ms, bound {bound[0]:.5f} ms ({bound[1]}, the {n_lanes} lanes' "
@@ -1899,17 +1940,151 @@ def batched_kernels(torch, ck, rec, n_lanes, counts):
     return out
 
 
+def temporal_windows(torch, rgbs=None, depths=None, scale: float = 1.0):
+    """(rgbs (B, T, H, W, 3), depths (B, T, H, W)) of phase 16's temporal
+    lanes: the ``TEMPORAL_LANES`` windows of the phase-3 ``dyn_walk`` frames
+    (``rgbs``, ``depths``; made at ``scale`` on the CPU when not given) and
+    one window as long of ``TEMPORAL_FAST``."""
+    from sindslam_tpu_torch.datasets.synthetic import make_benchmark_sequence
+
+    if rgbs is None:
+        frames, _ = make_benchmark_sequence("dyn_walk", n_frames=N_FRAMES,
+                                            seed=0, scale=scale)
+        rgbs = [torch.from_numpy(f[0]) for f in frames]
+        depths = [torch.from_numpy(f[1]) for f in frames]
+    n_t = len(TEMPORAL_LANES[0])
+    fast, _ = make_benchmark_sequence(TEMPORAL_FAST[0], n_frames=n_t,
+                                      seed=TEMPORAL_FAST[1], scale=scale)
+    dev = rgbs[0].device
+    rgb_t = [torch.stack([rgbs[i] for i in ln]) for ln in TEMPORAL_LANES]
+    depth_t = [torch.stack([depths[i] for i in ln]) for ln in TEMPORAL_LANES]
+    rgb_t.append(torch.stack([torch.from_numpy(f[0]) for f in fast]).to(dev))
+    depth_t.append(torch.stack([torch.from_numpy(f[1]) for f in fast]
+                               ).to(dev))
+    return torch.stack(rgb_t), torch.stack(depth_t)
+
+
+SYNC_WARNING = "called a synchronizing CUDA operation"
+# the host synchronisations a temporal lane-form step may make, at most one
+# each: the regime decision's and the one inside torch.linalg.eigh (its
+# error check, which has no form that does not read the host)
+SYNC_ORIGINS = {"sindslam_tpu_torch/ops/flow.py": "the count of lanes that "
+                "flipped their regime",
+                "sindslam_tpu_torch/ops/homography.py": "the DLT's eigh, "
+                "its error check"}
+
+
+class StepWatch:
+    """Wraps ``frontend_step``: for each call, the kernel wrapper calls it
+    made and the host synchronisations it made, each by the line of the
+    port that made it (``torch.cuda.set_sync_debug_mode("warn")`` warns at
+    every synchronising operation, ``warnings`` records where), in
+    ``steps``."""
+
+    def __init__(self, torch, ck, fp):
+        self.torch, self.ck, self.fp = torch, ck, fp
+        self.steps = []
+
+    def __enter__(self):
+        self.orig = self.fp.frontend_step
+        self.fp.frontend_step = self._call
+        return self
+
+    def __exit__(self, *exc):
+        self.fp.frontend_step = self.orig
+
+    def _call(self, *args, **kw):
+        import warnings
+
+        torch = self.torch
+        before = dict(self.ck.LAUNCHES)
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                res = self.orig(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        self.steps.append(dict(
+            calls={k: self.ck.LAUNCHES[k] - before[k] for k in MAIN_PATH},
+            syncs=[f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                   for w in seen if SYNC_WARNING in str(w.message)]))
+        return res
+
+
+def check_step_syncs(origins, what: str) -> None:
+    """At most one host synchronisation from each of ``SYNC_ORIGINS``
+    (``file:line`` each) and none from elsewhere."""
+    from collections import Counter
+
+    by_file = Counter(o.rsplit(":", 1)[0] for o in origins)
+    check(set(by_file) <= set(SYNC_ORIGINS)
+          and all(n <= 1 for n in by_file.values()),
+          f"{what}: host synchronisations {origins}, at most one allowed "
+          f"from each of {SYNC_ORIGINS}")
+
+
+def temporal_checks(large, lane_steps, alone_steps) -> dict:
+    """Phase 16's temporal lanes: the lane-form step's wrapper calls against
+    one lane's at each step (``alone_steps`` lane-major, ``large`` (B, T)
+    the lanes' verdicts). K2, K3 and the fused K4: equal. K1: a lane's
+    when no lane or every lane flipped its regime, else twice the calls of
+    a lane that kept its regime (the continuation and the restart are each
+    one full solve). Host synchronisations a step: at most one from each
+    of ``SYNC_ORIGINS`` and none from elsewhere. Fails on a step that
+    breaks these, and unless the lanes' regimes differ at some step."""
+    from collections import Counter
+
+    n_lanes, n_t = large.shape
+    calls, syncs, alone_calls = [], [], []
+    prev = large[:, 0] & False          # every lane starts at n->n-2
+    for t in range(n_t):
+        got = lane_steps[t]["calls"]
+        one = [alone_steps[b * n_t + t]["calls"] for b in range(n_lanes)]
+        flip = [bool(large[b, t]) != bool(prev[b]) for b in range(n_lanes)]
+        for name in MAIN_PATH[1:]:
+            check(all(got[name] == c[name] > 0 for c in one),
+                  f"temporal lanes, step {t}: {name} {got[name]} call(s) for "
+                  f"{n_lanes} lanes, alone {[c[name] for c in one]}")
+        kept = [c["sor_inner"] for c, f in zip(one, flip) if not f]
+        flipped = [c["sor_inner"] for c, f in zip(one, flip) if f]
+        want = 2 * kept[0] if kept and flipped else (kept or flipped)[0]
+        check(len(set(kept)) <= 1 and len(set(flipped)) <= 1
+              and got["sor_inner"] == want,
+              f"temporal lanes, step {t}: sor_inner {got['sor_inner']} calls, "
+              f"expected {want} (alone {[c['sor_inner'] for c in one]}, "
+              f"flipped {flip})")
+        check_step_syncs(lane_steps[t]["syncs"], f"temporal lanes, step {t}")
+        calls.append(got)
+        alone_calls.append(one[0])
+        syncs.append(len(lane_steps[t]["syncs"]))
+        prev = large[:, t]
+    check(bool((large != large[:1]).any()),
+          f"temporal lanes: every lane took the same regime at every step "
+          f"{large.int().tolist()}")
+    alone_syncs = [len(s["syncs"]) for s in alone_steps]
+    return dict(
+        calls=calls, alone_calls=alone_calls, syncs=syncs,
+        origins=dict(Counter(o for s in lane_steps for o in s["syncs"])),
+        alone_syncs=sum(alone_syncs) / len(alone_syncs),
+        alone_origins={k: v / len(alone_steps) for k, v in Counter(
+            o for s in alone_steps for o in s["syncs"]).items()})
+
+
 def phase_batch(torch, dev, cfg, rgbs, depths):
     """Phase 16: ``batch_frontend_step`` on pairs of the phase-3 frames
     (``rgbs``, ``depths`` on ``dev``) and ``batch_temporal_frontend`` on
-    lanes of them, the counts zeroed before each and read after; each lane
-    against the same pair or window run alone, and the step's kernel calls
-    against one pair's. Deterministic sums, so that a lane and its single
-    run can be equal. Each batched kernel call against its plain version
+    ``temporal_windows``, the counts zeroed before each and read after; each
+    lane against the same pair or window run alone, the step's kernel calls
+    against one pair's, and the temporal path's calls and host
+    synchronisations a step against one lane's (``temporal_checks``).
+    Deterministic sums, so that a lane and its single run can be equal.
+    Each batched kernel call against its plain version
     (``batched_kernels``); the batched call against the loop of
-    ``single_pair`` at B = 4 and 8, ms a pair and peak memory. Returns both
-    paths' outputs, which phase 17 holds its sharded lanes to, and the
-    batched kernels' figures."""
+    ``single_pair`` at B = 4 and 8, and the temporal call against
+    ``frontend_step`` over each lane in turn, ms a pair or a frame and peak
+    memory. Returns both paths' outputs, which phase 17 holds its sharded
+    lanes to, and the batched kernels' figures."""
     from sindslam_tpu_torch.frontend import pipeline as fp
     from sindslam_tpu_torch.frontend.flow_mask import n_grid_samples
     from sindslam_tpu_torch.ops import cuda_kernels as ck
@@ -1956,41 +2131,66 @@ def phase_batch(torch, dev, cfg, rgbs, depths):
         dyn = [int((m == cfg.dyna.mask_dynamic).sum()) for m in masks]
         kernels = batched_kernels(torch, ck, rec, n_lanes, batch_counts)
 
-        run = bf.batch_temporal_frontend(cfg, device=dev)
-        rgb_t = torch.stack([torch.stack([rgbs[i] for i in lane])
-                             for lane in TEMPORAL_LANES])
-        depth_t = torch.stack([torch.stack([depths[i] for i in lane])
-                               for lane in TEMPORAL_LANES])
-        sync(torch, dev)
-        ck.reset_launch_counts()
-        t0 = time.perf_counter()
-        masks_t, large_t, nf_t = run(rgb_t, depth_t)
-        sync(torch, dev)
-        n_t = sum(len(lane) for lane in TEMPORAL_LANES)
-        temporal_ms = 1e3 * (time.perf_counter() - t0) / n_t
-        temporal_counts = dict(ck.LAUNCHES)
-        for b, lane in enumerate(TEMPORAL_LANES):
-            st = fp.init_state(cfg, im.rgb_to_gray(rgbs[lane[0]]), device=dev)
-            for t, i in enumerate(lane):
-                out, st = fp.frontend_step(rgbs[i], depths[i], st, cfg)
-                check(torch.equal(masks_t[b, t], out.dyna_mask)
-                      and int(nf_t[b, t]) == int(out.features.valid.sum())
-                      and bool(large_t[b, t]) == out.large_motion,
-                      f"batch_temporal_frontend: lane {b} frame {t} differs "
-                      f"from frontend_step run alone")
+        rgb_t, depth_t = temporal_windows(torch, rgbs, depths)
+        n_lt, n_t = rgb_t.shape[:2]
+        # each lane alone, as frontend_step runs one frame, its wrapper
+        # calls and host synchronisations counted a step
+        alone, alone_steps = [], []
+        with StepWatch(torch, ck, fp) as watch:
+            for b in range(n_lt):
+                st = fp.init_state(cfg, im.rgb_to_gray(rgb_t[b, 0]),
+                                   device=dev)
+                outs = []
+                for t in range(n_t):
+                    out, st = fp.frontend_step(rgb_t[b, t], depth_t[b, t], st,
+                                               cfg)
+                    outs.append(out)
+                alone.append(outs)
+            alone_steps = watch.steps
+            watch.steps = []
+            run = bf.batch_temporal_frontend(cfg, device=dev)
+            sync(torch, dev)
+            ck.reset_launch_counts()
+            t0 = time.perf_counter()
+            masks_t, large_t, nf_t = run(rgb_t, depth_t)
+            sync(torch, dev)
+            temporal_first_ms = 1e3 * (time.perf_counter() - t0) / (n_lt * n_t)
+            temporal_counts = dict(ck.LAUNCHES)
+            lane_steps = watch.steps
+        apart = [(b, t) for b in range(n_lt) for t in range(n_t)
+                 if not (torch.equal(masks_t[b, t], alone[b][t].dyna_mask)
+                         and int(nf_t[b, t])
+                         == int(alone[b][t].features.valid.sum())
+                         and bool(large_t[b, t]) == alone[b][t].large_motion)]
     finally:
         torch.use_deterministic_algorithms(False)
+    print(f"temporal lanes, a step: wrapper calls and host synchronisations "
+          f"by origin {[(s['calls'], s['syncs']) for s in lane_steps]}; "
+          f"large_motion {large_t.int().tolist()}, alone "
+          f"{[[bool(o.large_motion) for o in outs] for outs in alone]}; "
+          f"(lane, frame) apart from frontend_step alone {apart}", flush=True)
+    check(not apart, f"batch_temporal_frontend: (lane, frame) {apart} differ "
+          f"from frontend_step run alone")
+    temporal = temporal_checks(large_t, lane_steps, alone_steps)
     print(f"batched front-end (deterministic sums): batch_frontend_step on "
           f"B = {n_lanes} pairs {list(BATCH_PAIRS)} of dyn_walk at "
           f"640x480, each lane equal to its pair run alone, dynamic pixels "
           f"per lane {dyn}, {batch_ms:.1f} ms a pair (host clock, synchronize "
           f"to synchronize, the first call), K1-K4 wrapper calls "
           f"{batch_counts} (one pair alone: {pair_counts}), CUDA launches of "
-          f"K1 and K2 {batch_cuda} (one pair alone: {pair_cuda}); "
-          f"batch_temporal_frontend on {len(TEMPORAL_LANES)} lanes x "
-          f"{len(TEMPORAL_LANES[0])} frames, each lane equal to frontend_step "
-          f"run alone, {temporal_ms:.1f} ms a frame, K1-K4 launches "
-          f"{temporal_counts}", flush=True)
+          f"K1 and K2 {batch_cuda} (one pair alone: {pair_cuda})", flush=True)
+    print(f"batch_temporal_frontend on {n_lt} lanes x {n_t} frames at "
+          f"640x480 (dyn_walk windows {list(TEMPORAL_LANES)} and a "
+          f"{TEMPORAL_FAST[0]} window, seed {TEMPORAL_FAST[1]}), one "
+          f"frontend_step call a step for all the lanes: each lane equal to "
+          f"frontend_step run alone; large_motion {large_t.int().tolist()}; "
+          f"valid keypoints {nf_t.tolist()}; {temporal_first_ms:.1f} ms a "
+          f"frame (the first call); K1-K4 wrapper calls {temporal_counts}, a "
+          f"step {temporal['calls']} (one lane alone, a step: "
+          f"{temporal['alone_calls']}); host synchronisations a step "
+          f"(torch.cuda.set_sync_debug_mode) {temporal['syncs']} by origin "
+          f"{temporal['origins']} (one lane alone: {temporal['alone_syncs']} "
+          f"by origin {temporal['alone_origins']})", flush=True)
     for name in MAIN_PATH:
         check(batch_counts[name] == pair_counts[name] > 0,
               f"the batched step made {batch_counts[name]} {name} call(s) "
@@ -2046,6 +2246,61 @@ def phase_batch(torch, dev, cfg, rgbs, depths):
               f"(torch.cuda.max_memory_allocated) batched "
               f"{speed[n]['batched'][1]:.0f} MiB, looped "
               f"{speed[n]['looped'][1]:.0f} MiB", flush=True)
+
+    # the temporal lanes the same way: one batch_temporal_frontend call
+    # against frontend_step over each lane's window in turn
+    run = bf.batch_temporal_frontend(cfg, device=dev)
+
+    def looped_t():
+        for b in range(n_lt):
+            st = fp.init_state(cfg, im.rgb_to_gray(rgb_t[b, 0]), device=dev)
+            for t in range(n_t):
+                _out, st = fp.frontend_step(rgb_t[b, t], depth_t[b, t], st,
+                                            cfg)
+
+    got = {"batched": [], "looped": []}
+    for label, fn in (("looped", looped_t),
+                      ("batched", lambda: run(rgb_t, depth_t)),
+                      ("batched", lambda: run(rgb_t, depth_t)),
+                      ("looped", looped_t)):
+        got[label].append(timed(fn))
+    n_fr = n_lt * n_t
+    t_speed = {k: (statistics.mean(ms for ms, _mem in v) / n_fr,
+                   max(mem for _ms, mem in v)) for k, v in got.items()}
+    # the host synchronisations a step under the default (atomic) sums, as
+    # the timed calls ran
+    with StepWatch(torch, ck, fp) as watch:
+        bf.batch_temporal_frontend(cfg, device=dev)(rgb_t, depth_t)
+    for t, step_t in enumerate(watch.steps):
+        check_step_syncs(step_t["syncs"], f"temporal lanes (atomic sums), "
+                                          f"step {t}")
+    atomic_syncs = [len(step_t["syncs"]) for step_t in watch.steps]
+    # the lanes' own draws, host time inside each step
+    st = fp.init_state(cfg, im.rgb_to_gray(rgb_t[:, 0]), device=dev)
+    draw_ms = []
+    for _ in range(4):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        fp._draws(st, cfg, dev, None, None)
+        sync(torch, dev)
+        draw_ms.append(1e3 * (time.perf_counter() - t0))
+    draw_ms = statistics.median(draw_ms[1:])
+    print(f"temporal lanes at B = {n_lt} x {n_t} frames: "
+          f"batch_temporal_frontend {t_speed['batched'][0]:.1f} ms a frame, "
+          f"frontend_step over each lane in turn {t_speed['looped'][0]:.1f} "
+          f"ms a frame (host clock, the second call of each, synchronize to "
+          f"synchronize, looped, batched, batched, looped: "
+          f"{[round(ms / n_fr, 1) for ms, _m in got['looped'][:1] + got['batched'] + got['looped'][1:]]}"
+          f" ms a frame); peak device memory batched "
+          f"{t_speed['batched'][1]:.0f} MiB, looped "
+          f"{t_speed['looped'][1]:.0f} MiB; the {n_lt} lanes' draws "
+          f"(jitter and Gumbel from each lane's CPU generator, one upload) "
+          f"{draw_ms:.2f} ms of host time a step; K1-K4 calls a step batched "
+          f"{[[c[k] for k in MAIN_PATH] for c in temporal['calls']]}, one "
+          f"lane {[[c[k] for k in MAIN_PATH] for c in temporal['alone_calls']]}"
+          f"; host synchronisations a step {temporal['syncs']} under "
+          f"deterministic sums, {atomic_syncs} under atomic sums "
+          f"(torch.cuda.set_sync_debug_mode)", flush=True)
     return (masks, labels, feats), (masks_t, large_t, nf_t), kernels
 
 
@@ -2168,8 +2423,9 @@ def phase_multidevice(torch, dev, cfg, rgbs, depths, batch_ref,
         # lane b's draws are phase 16's lane b mod len(BATCH_PAIRS)
         pairs = [BATCH_PAIRS[i % len(BATCH_PAIRS)]
                  for i in range(math.lcm(len(BATCH_PAIRS), n))]
-        lanes = [TEMPORAL_LANES[i % len(TEMPORAL_LANES)]
-                 for i in range(math.lcm(len(TEMPORAL_LANES), n))]
+        win_rgb, win_depth = temporal_windows(torch, rgbs, depths)
+        lanes = [i % win_rgb.shape[0]
+                 for i in range(math.lcm(win_rgb.shape[0], n))]
         n_s = n_grid_samples(cfg.camera.height, cfg.camera.width, cfg.dyna)
         gen = torch.Generator(device="cpu")
         gen.manual_seed(0)
@@ -2179,9 +2435,7 @@ def phase_multidevice(torch, dev, cfg, rgbs, depths, batch_ref,
         rgb_b = torch.stack([rgbs[a] for a, _b in pairs])
         prev_b = torch.stack([rgbs[b] for _a, b in pairs])
         depth_b = torch.stack([depths[a] for a, _b in pairs])
-        rgb_t = torch.stack([torch.stack([rgbs[i] for i in ln]) for ln in lanes])
-        depth_t = torch.stack([torch.stack([depths[i] for i in ln])
-                               for ln in lanes])
+        rgb_t, depth_t = win_rgb[lanes], win_depth[lanes]
 
         tcfg = cfg.tracking
         arrays = seeded_gba_problem(np, cfg.camera, tcfg.gba_max_keyframes,
@@ -2227,7 +2481,7 @@ def phase_multidevice(torch, dev, cfg, rgbs, depths, batch_ref,
               f"sharded batch_frontend_step: lane {b} differs from phase "
               f"16's lane {r}")
     for b in range(len(lanes)):
-        r = b % len(TEMPORAL_LANES)
+        r = lanes[b]
         check(all(torch.equal(x[b], y[r].cpu())
                   for x, y in zip(temp_out, temporal_ref)),
               f"sharded batch_temporal_frontend: lane {b} differs from "
@@ -2262,7 +2516,7 @@ def phase_multidevice(torch, dev, cfg, rgbs, depths, batch_ref,
           f"{1e3 * step_s / (n_pairs / n):.1f} ms a pair a rank, each lane "
           f"equal to phase 16's, K1-K4 launches of rank 0 {step_counts}; "
           f"sharded batch_temporal_frontend on {len(lanes)} lanes x "
-          f"{len(lanes[0])} frames {1e3 * temp_s / (len(lanes) // n * len(lanes[0])):.1f} "
+          f"{rgb_t.shape[1]} frames {1e3 * temp_s / (len(lanes) // n * rgb_t.shape[1]):.1f} "
           f"ms a frame a rank, each lane equal to phase 16's, launches "
           f"{temp_counts}", flush=True)
     print(f"global BA at the caps (K {tcfg.gba_max_keyframes}, P "

@@ -87,15 +87,25 @@ def state_from_numpy(s: Any, device=None, seed: int = 0) -> FrontendState:
     """The port's ``FrontendState`` from a reference ``FrontendState`` whose
     arrays were converted to numpy (e.g. ``jax.tree.map(np.asarray, st)``).
     The reference's PRNG key does not carry over: the port's generator is
-    seeded with ``seed``."""
+    seeded with ``seed``. A stacked reference state (``vmap`` of its
+    ``init_state``, a (B,) ``prev_large``) gives the lane form: a (B,) bool
+    tensor ``prev_large`` and one generator a lane, each seeded with
+    ``seed``."""
     dev = resolve_device(device)
     t = _to(dev)
-    gen = torch.Generator(device="cpu")
-    gen.manual_seed(seed)
+    prev_large = np.asarray(s.prev_large)
+
+    def generator():
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(seed)
+        return gen
+
+    lanes = prev_large.ndim == 1
     return FrontendState(
         pyr_m1=tuple(t(p) for p in s.pyr_m1),
         pyr_m2=tuple(t(p) for p in s.pyr_m2),
-        prev_large=bool(np.asarray(s.prev_large)),
+        prev_large=(t(prev_large).to(torch.bool) if lanes
+                    else bool(prev_large)),
         prev_labels=t(s.prev_labels).to(torch.int32),
         prev_mask=t(s.prev_mask).to(torch.int32),
         prev_high=t(s.prev_high).to(torch.bool),
@@ -104,7 +114,8 @@ def state_from_numpy(s: Any, device=None, seed: int = 0) -> FrontendState:
         dyn_depth=t(s.dyn_depth).to(torch.float32),
         flow_u_w=t(s.flow_u_w).to(torch.float32),
         flow_v_w=t(s.flow_v_w).to(torch.float32),
-        generator=gen)
+        generator=(tuple(generator() for _ in range(prev_large.shape[0]))
+                   if lanes else generator()))
 
 
 def ba_problem_from_numpy(p: Any, device=None) -> BAProblem:

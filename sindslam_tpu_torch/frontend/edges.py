@@ -136,7 +136,7 @@ def _sym3x3_min_eig(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
                                  min=1e-30))
     v = best / nrm
     iso = (torch.maximum(n01, torch.maximum(n02, n12)) < 1e-24)[..., None]
-    v = torch.where(iso, torch.tensor([0.0, 0.0, 1.0], device=A.device), v)
+    v = torch.where(iso, im.constant((0.0, 0.0, 1.0), A.device), v)
     return torch.clamp(lam, min=0.0), v
 
 

@@ -69,11 +69,11 @@ def _threshold_ladder(mag: torch.Tensor, valid: torch.Tensor, cfg: DynaConfig
     n_valid = torch.sum(valid.to(torch.float32), (-2, -1)) + 1e-9
     frac_fire = torch.sum((mag > low[..., None, None]) & valid,
                           (-2, -1)) / n_valid
-    low = torch.where(frac_fire > cfg.low_refire_frac,
-                      torch.tensor(cfg.low_thresh_max, device=mag.device), low)
-    high = torch.minimum(torch.maximum(high, torch.clamp(
+    low = torch.where(frac_fire > cfg.low_refire_frac, cfg.low_thresh_max,
+                      low)
+    high = torch.clamp(torch.maximum(high, torch.clamp(
         cfg.high_thresh_min_scale * low, min=cfg.high_thresh_floor)),
-        torch.tensor(cfg.high_thresh_max, device=mag.device))
+        max=cfg.high_thresh_max)
     return low, high
 
 
@@ -99,7 +99,7 @@ def _parallax_fit(A: torch.Tensor, b: torch.Tensor, w0: torch.Tensor
 
     def solve(wts):
         Aw = A * wts[:, None]
-        return torch.linalg.solve(A.T @ Aw + 1e-4 * eye6, Aw.T @ b)
+        return torch.linalg.solve_ex(A.T @ Aw + 1e-4 * eye6, Aw.T @ b).result
 
     theta = solve(w0)
     for cut in (3.0, 1.5, 1.0):

@@ -11,6 +11,8 @@ the 255/125/0 encoding at full resolution.
 ``fuse_masks`` also takes (B, H, W) stacks of lanes, with one K2 call for
 all of them; lane b is computed exactly as the same call on lane b alone
 (the per-label sums over all pixels one lane at a time, ``image.per_lane``).
+The moderate-motion verdict and the flow scale may then be (B,) tensors,
+one regime a lane, and the persistence warp is selected per lane.
 """
 
 from __future__ import annotations
@@ -64,7 +66,8 @@ def fuse_masks(low_mask: torch.Tensor, high_mask: torch.Tensor,
     """Fusion as ``frontend_step`` calls it: every persistence input given.
     ``flow_w`` is (u, v, ok) — the raw working-scale flow and the Python
     bool moderate-motion verdict; ``flow_scale`` 1.0 for n->n-1 flow, 0.5
-    for n->n-2."""
+    for n->n-2. On lanes ``ok`` may be a (B,) bool tensor and
+    ``flow_scale`` a (B,) f32 tensor."""
     h, w = low_mask.shape[-2:]
     lead = low_mask.shape[:-2]
     batched = bool(lead)
@@ -134,11 +137,23 @@ def fuse_masks(low_mask: torch.Tensor, high_mask: torch.Tensor,
     fw_u, fw_v, flow_ok = flow_w
     wh, ww = fw_u.shape[-2:]
     h2, w2 = label_h.shape[-2:]
+    if isinstance(flow_scale, torch.Tensor):
+        # f32 (w2 / ww) times a power of two: the Python scalar's rounding
+        flow_scale = flow_scale[:, None, None]
     u_h = im.resize_bilinear(fw_u, (h2, w2)) * ((w2 / ww) * flow_scale)
     v_h = im.resize_bilinear(fw_v, (h2, w2)) * ((h2 / wh) * flow_scale)
     d_h = im.subsample(depth_m).to(torch.float32)
     prev_depth_h = im.subsample(prev_dyn_depth).to(torch.float32)
-    if flow_ok:
+    if isinstance(flow_ok, torch.Tensor):
+        # the reference's two selects, one regime a lane
+        ok = flow_ok[:, None, None]
+        warped_s, s_inb = im.warp_by_flow(prev_score_h, u_h, v_h)
+        prev_score_h = torch.where(ok & s_inb, warped_s, prev_score_h)
+        prev_score_h = torch.where(ok & ~s_inb, 0.0, prev_score_h)
+        warped_d, d_inb = im.warp_by_flow(prev_depth_h, u_h, v_h)
+        prev_depth_h = torch.where(ok, torch.where(d_inb, warped_d, d_h),
+                                   prev_depth_h)
+    elif flow_ok:
         warped_s, s_inb = im.warp_by_flow(prev_score_h, u_h, v_h)
         prev_score_h = torch.where(s_inb, warped_s, 0.0)
         warped_d, d_inb = im.warp_by_flow(prev_depth_h, u_h, v_h)

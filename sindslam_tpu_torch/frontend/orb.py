@@ -215,8 +215,10 @@ def brief_descriptors(img_blur: torch.Tensor, yx: torch.Tensor,
     tau = (2.0 * math.pi) / _N_ANGLE_BINS
     bins = torch.remainder(torch.round(angle / tau).to(torch.int32),
                            _N_ANGLE_BINS)
+    # a remainder lies in the table's rows: no range check, no host read
     return ck.brief_from_patches(img_blur, y0, x0, bins,
-                                 _binned_offset_table_on(img_blur.device))
+                                 _binned_offset_table_on(img_blur.device),
+                                 check_bins=False)
 
 
 def _border_mask(score: torch.Tensor, margin: int) -> torch.Tensor:

@@ -9,6 +9,14 @@ where its state lives. The random draws come from the state's CPU
 ``torch.Generator`` (so the card draws the CPU's numbers), or are passed
 in (``jitter``, ``gumbel``) by tests that inject the reference's
 ``jax.random`` draws.
+
+Lanes: ``init_state`` of a (B, H, W) stack of first frames gives a state
+whose tensors have a leading lane axis, a (B,) bool ``prev_large`` on the
+device and one CPU generator a lane. ``frontend_step`` on such a state
+steps every lane in one call, as the reference's ``vmap`` of its
+``frontend_step``: each of K1-K4 is launched for all the lanes, each lane
+keeps its own large-motion regime on the device, and lane b equals the
+single-frame step on lane b's frames alone.
 """
 
 from __future__ import annotations
@@ -39,7 +47,8 @@ class FrontendState(NamedTuple):
 
     pyr_m1: Tuple[torch.Tensor, ...]  # working-scale flow pyramid, frame n-1
     pyr_m2: Tuple[torch.Tensor, ...]  # working-scale flow pyramid, frame n-2
-    prev_large: bool         # last frame's large-motion verdict
+    prev_large: bool         # last frame's large-motion verdict ((B,) bool
+    #                          tensor of lanes; their tensors lead with B)
     prev_labels: torch.Tensor  # (H, W) int32 k-means warm start
     prev_mask: torch.Tensor    # (H, W) int32 previous dyna mask (255/125/0)
     prev_high: torch.Tensor    # (H, W) bool previous high-residual mask
@@ -49,13 +58,14 @@ class FrontendState(NamedTuple):
     flow_u_w: torch.Tensor     # (wh, ww) f32 previous frame's raw
     flow_v_w: torch.Tensor     # working-scale flow
     generator: torch.Generator  # source of the per-frame random draws
+    #                             (a tuple of one a lane)
 
 
 class FrontendOutput(NamedTuple):
     dyna_mask: torch.Tensor   # (H, W) int32 255/125/0 (pre driver-dilation)
     label_img: torch.Tensor   # (H, W) int32 cluster labels
     features: OrbFeatures     # masked ORB features
-    large_motion: bool
+    large_motion: bool        # a (B,) bool tensor of lanes
     kp_depth: torch.Tensor    # (N,) per-keypoint depth (0 = invalid)
     kp_ur: torch.Tensor       # (N,) virtual-right u (-1 = mono)
 
@@ -68,28 +78,70 @@ def _as_tensor(x, device, dtype=None) -> torch.Tensor:
 
 def init_state(cfg: SystemConfig, gray0, device=None, seed: int = 0
                ) -> FrontendState:
-    """Initial front-end state from the first frame's (H, W) grayscale;
-    ``seed`` seeds the state's random generator."""
+    """Initial front-end state from the first frame's (H, W) grayscale, or
+    the lane form from a (B, H, W) stack of them; ``seed`` seeds the
+    state's random generator (every lane's)."""
     dev = resolve_device(device)
-    h, w = cfg.camera.height, cfg.camera.width
-    pyr0 = flow_ops.working_pyramid(_as_tensor(gray0, dev, torch.float32),
-                                    cfg.flow)
-    wsz = (cfg.flow.working_height, cfg.flow.working_width)
-    # a CPU generator on every device: a card generator streams other
-    # numbers than the CPU's for one seed
-    gen = torch.Generator(device="cpu")
-    gen.manual_seed(seed)
+    gray0 = _as_tensor(gray0, dev, torch.float32)
+    lead = tuple(gray0.shape[:-2])
+    hw = (*lead, cfg.camera.height, cfg.camera.width)
+    pyr0 = flow_ops.working_pyramid(gray0, cfg.flow)
+    wsz = (*lead, cfg.flow.working_height, cfg.flow.working_width)
+
+    def generator():
+        # a CPU generator on every device: a card generator streams other
+        # numbers than the CPU's for one seed
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(seed)
+        return gen
+
     return FrontendState(
-        pyr_m1=pyr0, pyr_m2=pyr0, prev_large=False,
-        prev_labels=torch.full((h, w), -1, dtype=torch.int32, device=dev),
-        prev_mask=torch.zeros((h, w), dtype=torch.int32, device=dev),
-        prev_high=torch.zeros((h, w), dtype=torch.bool, device=dev),
-        ratio_img=torch.zeros((h, w), dtype=torch.float32, device=dev),
-        dyn_score=torch.zeros((h, w), dtype=torch.float32, device=dev),
-        dyn_depth=torch.zeros((h, w), dtype=torch.float32, device=dev),
+        pyr_m1=pyr0, pyr_m2=pyr0,
+        prev_large=(torch.zeros(lead, dtype=torch.bool, device=dev) if lead
+                    else False),
+        prev_labels=torch.full(hw, -1, dtype=torch.int32, device=dev),
+        prev_mask=torch.zeros(hw, dtype=torch.int32, device=dev),
+        prev_high=torch.zeros(hw, dtype=torch.bool, device=dev),
+        ratio_img=torch.zeros(hw, dtype=torch.float32, device=dev),
+        dyn_score=torch.zeros(hw, dtype=torch.float32, device=dev),
+        dyn_depth=torch.zeros(hw, dtype=torch.float32, device=dev),
         flow_u_w=torch.zeros(wsz, dtype=torch.float32, device=dev),
         flow_v_w=torch.zeros(wsz, dtype=torch.float32, device=dev),
-        generator=gen)
+        generator=(tuple(generator() for _ in range(lead[0])) if lead
+                   else generator()))
+
+
+def _upload(x: torch.Tensor, dev) -> torch.Tensor:
+    """A CPU tensor on ``dev`` without a host synchronisation: from pinned
+    memory, asynchronously."""
+    if torch.device(dev).type != "cuda" or x.device.type != "cpu":
+        return x.to(dev)
+    return x.pin_memory().to(dev, non_blocking=True)
+
+
+def _draws(state: FrontendState, cfg: SystemConfig, dev, jitter, gumbel
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One frame's (H, W) jitter and (ransac_iters, N) Gumbel draws, each
+    from the state's generator (in that order) unless given; of lanes, each
+    lane's from its own generator, stacked and uploaded at once."""
+    h, w = cfg.camera.height, cfg.camera.width
+    n_s = n_grid_samples(h, w, cfg.dyna)
+    gens = state.generator
+    if not isinstance(gens, tuple):
+        if jitter is None:
+            jitter = torch.randn((h, w), generator=gens,
+                                 device=gens.device).to(dev)
+        if gumbel is None:
+            gumbel = gumbel_draws(cfg.dyna.ransac_iters, n_s, gens, dev)
+        return jitter, gumbel
+    js, gs = [], []
+    for g in gens:
+        if jitter is None:
+            js.append(torch.randn((h, w), generator=g, device=g.device))
+        if gumbel is None:
+            gs.append(gumbel_draws(cfg.dyna.ransac_iters, n_s, g, g.device))
+    return (_upload(torch.stack(js) if jitter is None else jitter, dev),
+            _upload(torch.stack(gs) if gumbel is None else gumbel, dev))
 
 
 def frontend_step(rgb, depth_m, state: FrontendState, cfg: SystemConfig,
@@ -97,21 +149,18 @@ def frontend_step(rgb, depth_m, state: FrontendState, cfg: SystemConfig,
                   gumbel: torch.Tensor | None = None
                   ) -> Tuple[FrontendOutput, FrontendState]:
     """Full front-end for one frame: (H, W, 3) uint8 RGB and (H, W) f32
-    metric depth (numpy or tensors) in, output and next state out.
+    metric depth (numpy or tensors) in, output and next state out. On a
+    lane state, (B, H, W, 3) and (B, H, W): one frame a lane.
 
     ``jitter`` (H, W) standard-normal and ``gumbel`` (ransac_iters, N)
-    standard-Gumbel draws replace the state generator's when given."""
+    standard-Gumbel draws ((B, H, W) and (B, ransac_iters, N) of lanes)
+    replace the state generator's when given."""
     dev = state.prev_mask.device
     h, w = cfg.camera.height, cfg.camera.width
     rgb = _as_tensor(rgb, dev)
     depth_m = _as_tensor(depth_m, dev, torch.float32)
-    if jitter is None:
-        jitter = torch.randn((h, w), generator=state.generator,
-                             device=state.generator.device).to(dev)
-    if gumbel is None:
-        gumbel = gumbel_draws(cfg.dyna.ransac_iters,
-                              n_grid_samples(h, w, cfg.dyna),
-                              state.generator, dev)
+    lanes = isinstance(state.prev_large, torch.Tensor)
+    jitter, gumbel = _draws(state, cfg, dev, jitter, gumbel)
 
     stage = torch.profiler.record_function   # named ranges for profiling
     with stage("frontend/flow"):
@@ -152,7 +201,9 @@ def frontend_step(rgb, depth_m, state: FrontendState, cfg: SystemConfig,
                         prev_dyn_score=state.dyn_score,
                         prev_dyn_depth=state.dyn_depth, depth_m=depth_m,
                         flow_w=flow_raw_w,
-                        flow_scale=1.0 if large_motion else 0.5)
+                        flow_scale=(torch.where(large_motion, 1.0, 0.5)
+                                    if lanes else
+                                    1.0 if large_motion else 0.5))
 
     with stage("frontend/orb"):
         # driver-side dilation, applied only to the feature-erasure mask

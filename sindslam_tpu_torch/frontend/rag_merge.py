@@ -210,7 +210,7 @@ def rag_merge(kmeans_labels: torch.Tensor, edges: torch.Tensor,
     cnt_r = (S.mT @ cnt[..., None])[..., 0]
     centers_r = (S.mT @ (centers * cnt[..., None])) / torch.clamp(
         cnt_r[..., None], min=1.0)
-    centers_r = centers_r * torch.tensor([2.0, 2.0, 1.0], device=dev)
+    centers_r = centers_r * im.constant((2.0, 2.0, 1.0), dev)
     return RagResult(label_img=label_img,
                      n_clusters=torch.amax(label_img, (-2, -1)),
                      areas=cnt_r * 4.0, centers=centers_r)

@@ -479,9 +479,11 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
 
 def brief_from_patches_plain(img: torch.Tensor, y0: torch.Tensor,
                              x0: torch.Tensor, bins: torch.Tensor,
-                             table: torch.Tensor) -> torch.Tensor:
+                             table: torch.Tensor, check_bins: bool = True
+                             ) -> torch.Tensor:
     """The 28x28 windows, one gather of each keypoint's 512 table samples,
-    the 256 ``sample j < sample 256 + j`` tests, packed."""
+    the 256 ``sample j < sample 256 + j`` tests, packed. ``check_bins`` is
+    the kernel's (its table lookup is an indexing either way)."""
     patches = extract_patches_plain(img, y0, x0, _BRIEF_PATCH)
     samples = torch.gather(patches.flatten(-2), -1,
                            table[bins.long()].long())        # (..., N, 512)
@@ -489,14 +491,17 @@ def brief_from_patches_plain(img: torch.Tensor, y0: torch.Tensor,
 
 
 def brief_from_patches(img: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
-                       bins: torch.Tensor, table: torch.Tensor
-                       ) -> torch.Tensor:
+                       bins: torch.Tensor, table: torch.Tensor,
+                       check_bins: bool = True) -> torch.Tensor:
     """256-bit BRIEF descriptors, (N, 8) int32 words, of the 28x28 windows
     of an (h, w) f32 image at (N,) corners, or (B, N, 8) of a (B, h, w)
     stack at (B, N) corners: keypoint n is tested at the window-linear
     sample indices ``table[bins[n]]`` (an (n_bins, 512) int32 table shared
     by the lanes, samples j and 256 + j making bit j). Kernel:
-    ``csrc/extract_patches.cu``; the windows stay in shared memory."""
+    ``csrc/extract_patches.cu``; the windows stay in shared memory.
+    ``check_bins=False`` skips the bins' range check (a host
+    synchronisation) for a caller whose bins lie in the table by
+    construction."""
     if _on_cpu(img, y0, x0, bins, table):
         return brief_from_patches_plain(img, y0, x0, bins, table)
     lanes = _lanes(img, "brief_from_patches img")
@@ -517,11 +522,12 @@ def brief_from_patches(img: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
     out = torch.empty((*lead, n, 8), dtype=torch.int32, device=img.device)
     if n == 0:
         return out
-    # one range check (one host synchronisation) for all the lanes
-    lo, hi = torch.stack(torch.aminmax(bins)).tolist()
-    if lo < 0 or hi >= table.shape[0]:
-        raise ValueError(f"brief_from_patches: bins span [{lo}, {hi}], the "
-                         f"table has {table.shape[0]} rows")
+    if check_bins:
+        # one range check (one host synchronisation) for all the lanes
+        lo, hi = torch.stack(torch.aminmax(bins)).tolist()
+        if lo < 0 or hi >= table.shape[0]:
+            raise ValueError(f"brief_from_patches: bins span [{lo}, {hi}], "
+                             f"the table has {table.shape[0]} rows")
     ptrs = [t.data_ptr() for t in (img, y0, x0, bins, table, out)]
     _launch("brief_from_patches", img.device, *ptrs, lanes, n, h, w)
     return out

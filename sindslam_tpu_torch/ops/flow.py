@@ -6,10 +6,11 @@ inner solve (lagged psi' re-weighting + red-black SOR) runs in kernel K1
 (``cuda_kernels.sor_inner``). One path: the kernel on CUDA, its plain
 version on the CPU; the warp is the gather form everywhere.
 
-The stateless solve (``variational_flow``, ``flow_at_working_scale`` and
-the pyramid helpers) also takes (B, H, W) stacks of lanes: each level then
+Every function also takes (B, H, W) stacks of lanes: each level then
 makes one K1 call for all the lanes, and lane b is computed exactly as the
-same call on lane b alone.
+same call on lane b alone. ``flow_fallback_from_pyramids`` on lanes takes a
+(B,) bool ``prev_large`` and decides each lane's regime on the device, as
+the reference's ``vmap`` of its ``lax.cond`` does.
 """
 
 from __future__ import annotations
@@ -123,12 +124,22 @@ def variational_flow(img1_gray: torch.Tensor, img2_gray: torch.Tensor,
 
 def working_pyramid(gray_full: torch.Tensor, cfg: FlowConfig
                     ) -> Tuple[torch.Tensor, ...]:
-    """Preprocessed Gaussian pyramid of a full-res grayscale frame at the
-    working scale (cached in the front-end state across frames)."""
+    """Preprocessed Gaussian pyramid of a full-res grayscale frame (or of
+    each lane of a (B, H, W) stack) at the working scale (cached in the
+    front-end state across frames)."""
     wh, ww = cfg.working_height, cfg.working_width
     g = _preprocess(im.resize_bilinear(gray_full, (wh, ww)))
     shapes = pyramid_shapes(wh, ww, cfg.pyramid_scale, cfg.n_levels)
     return tuple(_build_pyramid(g, shapes))
+
+
+def _pick(cond, a, b):
+    """``a if cond else b`` of a Python bool; per lane (``torch.where``) of
+    a (B,) bool tensor, ``a`` and ``b`` (B, ...) stacks or scalars."""
+    if isinstance(cond, bool):
+        return a if cond else b
+    lead = a.dim() - 1 if isinstance(a, torch.Tensor) else 0
+    return torch.where(cond.reshape(-1, *(1,) * lead), a, b)
 
 
 def flow_fallback_from_pyramids(
@@ -136,7 +147,7 @@ def flow_fallback_from_pyramids(
     pyr_m1: Sequence[torch.Tensor],
     pyr_m2: Sequence[torch.Tensor],
     valid_full: torch.Tensor,
-    prev_large: bool,
+    prev_large,
     cfg: FlowConfig,
     large_motion_flow_px: float,
     large_motion_frac: float,
@@ -152,43 +163,75 @@ def flow_fallback_from_pyramids(
 
     Returns ``(u_full, v_full, large_motion, photo_err, (u_w, v_w, ok))``
     with ``large_motion`` and ``ok`` as Python bools.
+
+    Lanes: (B, h, w) pyramid levels with a (B,) bool tensor ``prev_large``
+    give (B,) bool tensors ``large_motion`` and ``ok``, decided on the
+    device. Every lane continues its pre-solve; when the decision flipped
+    some lane's prediction, every lane also solves in full against the
+    target its decision chose, and each lane keeps the solve its regime
+    selects (the reference's ``vmap`` of its ``lax.cond``). The one host
+    read is the count of lanes that flipped: with none the restart is not
+    run, with all the continuation is not.
     """
     H, W = out_hw
-    shapes = [tuple(p.shape) for p in pyr_cur]
+    shapes = [tuple(p.shape[-2:]) for p in pyr_cur]
     wh, ww = shapes[0]
     top = len(shapes) - 1
     k = min(max(cfg.fallback_pretest_level, 0), top)
     dev = pyr_cur[0].device
+    lanes = isinstance(prev_large, torch.Tensor) and prev_large.dim() == 1
+    if not lanes:
+        prev_large = bool(prev_large)
 
-    prev_large = bool(prev_large)
-    pyr_t1 = pyr_m1 if prev_large else pyr_m2
+    pyr_t1 = tuple(_pick(prev_large, a, b) for a, b in zip(pyr_m1, pyr_m2))
     ch, cw = shapes[-1]
-    u0 = torch.zeros((ch, cw), dtype=torch.float32, device=dev)
+    u0 = torch.zeros((*pyr_cur[0].shape[:-2], ch, cw), dtype=torch.float32,
+                     device=dev)
     v0 = torch.zeros_like(u0)
     u_c, v_c = _solve_pyramid_range(pyr_cur, pyr_t1, u0, v0, cfg, top, k)
 
     # magnitude test in full-resolution n->n-2-equivalent pixels
     lh, lw = shapes[k]
-    mag_scale = 2.0 if prev_large else 1.0
+    mag_scale = (torch.where(prev_large, 2.0, 1.0)[:, None, None] if lanes
+                 else 2.0 if prev_large else 1.0)
     mag = torch.sqrt((u_c * (W / lw)) ** 2 + (v_c * (H / lh)) ** 2) * mag_scale
     val_c = im.resize_bilinear(valid_full.to(torch.float32), (lh, lw)) > 0.5
-    n_ok = torch.sum(val_c) + 1e-9
-    frac_below = torch.sum((mag <= large_motion_flow_px) & val_c) / n_ok
-    frac_below_wide = torch.sum((mag <= compose_max_flow_px) & val_c) / n_ok
-    large_motion = bool(frac_below < large_motion_frac)
-    compose_ok = bool(frac_below_wide >= large_motion_frac)
+    n_ok = torch.sum(val_c, (-2, -1)) + 1e-9
+    frac_below = torch.sum((mag <= large_motion_flow_px) & val_c,
+                           (-2, -1)) / n_ok
+    frac_below_wide = torch.sum((mag <= compose_max_flow_px) & val_c,
+                                (-2, -1)) / n_ok
+    large_motion = frac_below < large_motion_frac
+    compose_ok = frac_below_wide >= large_motion_frac
 
-    if large_motion == prev_large:
-        u, v = (_solve_pyramid_range(pyr_cur, pyr_t1, u_c, v_c, cfg, k - 1, 0)
+    def cont():
+        return (_solve_pyramid_range(pyr_cur, pyr_t1, u_c, v_c, cfg, k - 1, 0)
                 if k > 0 else (u_c, v_c))
-    else:
+
+    def restart():
         # the decision flipped the prediction: full solve against the target
         # the decision chose
-        pyr_t2 = pyr_m1 if large_motion else pyr_m2
-        u, v = _solve_pyramid_range(pyr_cur, pyr_t2, u0, v0, cfg, top, 0)
+        pyr_t2 = tuple(_pick(large_motion, a, b)
+                       for a, b in zip(pyr_m1, pyr_m2))
+        return _solve_pyramid_range(pyr_cur, pyr_t2, u0, v0, cfg, top, 0)
+
+    if lanes:
+        flip = large_motion != prev_large
+        n_flip = int(flip.sum())       # the step's one host read
+        if n_flip == 0:
+            u, v = cont()
+        elif n_flip == flip.shape[0]:
+            u, v = restart()
+        else:
+            (uc, vc), (ur, vr) = cont(), restart()
+            u, v = _pick(flip, ur, uc), _pick(flip, vr, vc)
+    else:
+        large_motion = bool(large_motion)
+        compose_ok = bool(compose_ok)
+        u, v = cont() if large_motion == prev_large else restart()
 
     # photometric consistency of the final flow at working scale
-    target_l0 = pyr_m1[0] if large_motion else pyr_m2[0]
+    target_l0 = _pick(large_motion, pyr_m1[0], pyr_m2[0])
     warped, inb = im.warp_by_flow(target_l0, u, v)
     photo_err_w = torch.where(inb, torch.abs(warped - pyr_cur[0]), 1.0)
     photo_err = im.resize_bilinear(photo_err_w, (H, W))
@@ -199,7 +242,11 @@ def flow_fallback_from_pyramids(
         pu, pv = prev_flow_w
         cu, cinb = im.warp_by_flow(pu, u, v)
         cv, _ = im.warp_by_flow(pv, u, v)
-        if large_motion and compose_ok:
+        if lanes:
+            gate = (large_motion & compose_ok)[:, None, None] & cinb
+            u_det = torch.where(gate, u + cu, u)
+            v_det = torch.where(gate, v + cv, v)
+        elif large_motion and compose_ok:
             u_det = torch.where(cinb, u + cu, u)
             v_det = torch.where(cinb, v + cv, v)
 

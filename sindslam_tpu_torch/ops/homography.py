@@ -10,8 +10,11 @@ that tests can inject the reference's ``jax.random`` draws.
 
 Each function also takes (B, ...) stacks of lanes (the batched front-end's
 B frame pairs); lane b is computed exactly as the same call on lane b
-alone. The weighted DLT runs one lane at a time (``image.per_lane``: its
-sums over all correspondences part on the card otherwise).
+alone. The weighted DLT's normal matrix and its 3x3 products run one lane
+at a time (``image.per_lane``: its sums over all correspondences part on
+the card otherwise); its eigen solve is one call for all the lanes, whose
+error check is the DLT's one host synchronisation. The solves are
+``solve_ex``, which does not read its error code back.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from typing import Tuple
 
 import torch
 
-from sindslam_tpu_torch.ops.image import lane_index, per_lane
+from sindslam_tpu_torch.ops.image import lane_index, lane_matmul, per_lane
 
 
 def _normalize_points(pts: torch.Tensor, w: torch.Tensor
@@ -41,10 +44,10 @@ def _normalize_points(pts: torch.Tensor, w: torch.Tensor
 
 
 @per_lane(2)
-def dlt_homography(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor
-                   ) -> torch.Tensor:
-    """Weighted DLT: H (3, 3) with dst ~ H src, as the smallest eigenvector
-    of the 9x9 normal matrix of the Hartley-normalized design matrix."""
+def _dlt_normal(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One lane's 9x9 normal matrix of the Hartley-normalized weighted
+    design matrix, with the two normalizations."""
     src_n, T_s = _normalize_points(src, w)
     dst_n, T_d = _normalize_points(dst, w)
     x, y = src_n[:, 0], src_n[:, 1]
@@ -54,10 +57,18 @@ def dlt_homography(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor
     row1 = torch.stack([-x, -y, -one, zero, zero, zero, u * x, u * y, u], -1)
     row2 = torch.stack([zero, zero, zero, -x, -y, -one, v * x, v * y, v], -1)
     A = torch.cat([row1 * w[:, None], row2 * w[:, None]], 0)
-    _, eigvecs = torch.linalg.eigh(A.T @ A)
-    Hn = eigvecs[:, 0].reshape(3, 3)
-    H = torch.linalg.solve(T_d, Hn @ T_s)
-    return H / (H[2, 2] + 1e-12)
+    return A.T @ A, T_s, T_d
+
+
+def dlt_homography(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor
+                   ) -> torch.Tensor:
+    """Weighted DLT: H (3, 3) with dst ~ H src, as the smallest eigenvector
+    of the 9x9 normal matrix of the Hartley-normalized design matrix."""
+    ata, T_s, T_d = _dlt_normal(src, dst, w)
+    _, eigvecs = torch.linalg.eigh(ata)
+    Hn = eigvecs[..., :, 0].reshape(*ata.shape[:-2], 3, 3)
+    H = torch.linalg.solve_ex(T_d, lane_matmul(Hn, T_s)).result
+    return H / (H[..., 2:3, 2:3] + 1e-12)
 
 
 def _solve8(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -68,13 +79,13 @@ def _solve8(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     M = torch.cat([A, b[..., None]], -1).reshape(-1, 8, 9)  # (B, 8, 9)
     nb = M.shape[0]
     rows = torch.arange(8, device=M.device)
-    bidx = torch.arange(nb, device=M.device)
     for k in range(8):
         col = torch.where(rows[None, :] >= k, torch.abs(M[:, :, k]), -1.0)
-        piv = torch.argmax(col, -1)                         # (B,)
-        perm = rows[None, :].expand(nb, 8).clone()
-        perm[:, k] = piv
-        perm[bidx, piv] = k
+        piv = torch.argmax(col, -1, keepdim=True)           # (B, 1)
+        # swap rows k and piv: selects, not an index put (which reads the
+        # host under deterministic algorithms)
+        perm = torch.where(rows[None, :] == piv, k,
+                           torch.where(rows[None, :] == k, piv, rows[None, :]))
         M = torch.gather(M, 1, perm[:, :, None].expand(nb, 8, 9))
         pivot_row = M[:, k] / (M[:, k, k:k + 1] + 1e-20)
         factors = M[:, :, k].clone()

@@ -56,6 +56,13 @@ def per_lane(rank: int) -> Callable:
 lane_matmul = per_lane(2)(torch.matmul)
 
 
+@functools.lru_cache(maxsize=64)
+def constant(values: tuple, device: torch.device) -> torch.Tensor:
+    """A float32 tensor of ``values`` on ``device``, uploaded once: an
+    upload is a host synchronisation."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
 def lane_index(x: torch.Tensor, idx: torch.Tensor, batched: bool
                ) -> torch.Tensor:
     """``x[idx]`` of one lane; of a stack, ``x[b][idx[b]]`` for every lane

@@ -28,7 +28,11 @@ r runs lanes ``mesh.shard(B)`` and every rank gets all B lanes' outputs
   stateful one: each lane runs the real ``frontend_step`` (temporal
   flow-pyramid cache, large-motion fallback, k-means warm start,
   persistence) over its own window, from ``init_state(seed=0)`` like every
-  JAX lane's ``PRNGKey(0)``; its lanes run one after another.
+  JAX lane's ``PRNGKey(0)``. Within a device it is one program over the
+  rank's lanes, as JAX's ``vmap`` of a ``scan`` of ``frontend_step``: one
+  lane-form ``init_state`` and one ``frontend_step`` call a time step, each
+  lane with its own large-motion regime on the device; lane b equals
+  ``frontend_step`` run alone over window b.
 - ``step_on_mesh`` and ``temporal_on_mesh`` are the two as rank functions
   for ``launch.spawn``.
 """
@@ -132,38 +136,38 @@ def batch_temporal_frontend(cfg: SystemConfig, device=None,
                             mesh: Optional[Mesh] = None) -> Callable:
     """The batched stateful front-end on ``device`` (CUDA unless it says
     otherwise), or on this rank's device of ``mesh``: each lane scans
-    ``frontend_step`` over its own window.
+    ``frontend_step`` over its own window, every lane in one call a step.
 
-    Returns ``run(rgbs (B, T, H, W, 3) uint8, depths (B, T, H, W) f32) ->
-    (masks (B, T, H, W) int32, large_motion (B, T) bool on the CPU,
-    n_feats (B, T) int32)``. With a mesh, B must divide over its
-    devices."""
+    Returns ``run(rgbs (B, T, H, W, 3) uint8, depths (B, T, H, W) f32,
+    jitter=None, gumbel=None) -> (masks (B, T, H, W) int32, large_motion
+    (B, T) bool on the CPU, n_feats (B, T) int32)``. ``jitter`` (B, T, H, W)
+    and ``gumbel`` (B, T, ransac_iters, N) replace the lanes' own draws
+    when given. With a mesh, B must divide over its devices."""
     from sindslam_tpu_torch.frontend.pipeline import frontend_step, init_state
 
     dev = mesh.device if mesh is not None else resolve_device(device)
 
-    def run(rgbs, depths):
-        B, T = rgbs.shape[:2]
-        own = _own(mesh, B)
+    def run(rgbs, depths, jitter: Optional[torch.Tensor] = None,
+            gumbel: Optional[torch.Tensor] = None):
+        own = _own(mesh, rgbs.shape[0])
         rgbs = rgbs[own].to(dev)
         depths = depths[own].to(dev, torch.float32)
+        jitter = None if jitter is None else jitter[own].to(dev)
+        gumbel = None if gumbel is None else gumbel[own].to(dev)
+        state = init_state(cfg, im.rgb_to_gray(rgbs[:, 0]), device=dev)
         masks, large, n_feats = [], [], []
-        for b in range(rgbs.shape[0]):
-            state = init_state(cfg, im.rgb_to_gray(rgbs[b, 0]), device=dev)
-            for t in range(T):
-                out, state = frontend_step(rgbs[b, t], depths[b, t], state,
-                                           cfg)
-                masks.append(out.dyna_mask)
-                large.append(out.large_motion)
-                n_feats.append(out.features.valid.sum().to(torch.int32))
-        n = rgbs.shape[0]
-        large = torch.tensor(large, dtype=torch.bool).reshape(n, T)
-        if mesh is not None:
-            large = all_gather_lanes(large.to(dev), mesh).cpu()
-        return (all_gather_lanes(
-                    torch.stack(masks).reshape(n, T, *masks[0].shape), mesh),
-                large,
-                all_gather_lanes(torch.stack(n_feats).reshape(n, T), mesh))
+        for t in range(rgbs.shape[1]):
+            out, state = frontend_step(
+                rgbs[:, t].contiguous(), depths[:, t].contiguous(), state,
+                cfg, jitter=None if jitter is None else jitter[:, t],
+                gumbel=None if gumbel is None else gumbel[:, t])
+            masks.append(out.dyna_mask)
+            large.append(out.large_motion)
+            n_feats.append(out.features.valid.sum(-1).to(torch.int32))
+        # the verdicts stay on the device until the window ends
+        return (all_gather_lanes(torch.stack(masks, 1), mesh),
+                all_gather_lanes(torch.stack(large, 1), mesh).cpu(),
+                all_gather_lanes(torch.stack(n_feats, 1), mesh))
 
     return run
 
@@ -176,7 +180,9 @@ def step_on_mesh(mesh: Mesh, cfg: SystemConfig, rgbs, rgbs_prev, depths,
                                                gumbel=gumbel)
 
 
-def temporal_on_mesh(mesh: Mesh, cfg: SystemConfig, rgbs, depths):
+def temporal_on_mesh(mesh: Mesh, cfg: SystemConfig, rgbs, depths,
+                     jitter=None, gumbel=None):
     """Rank function for ``launch.spawn``: ``batch_temporal_frontend``
-    sharded over ``mesh`` on B windows."""
-    return batch_temporal_frontend(cfg, mesh=mesh)(rgbs, depths)
+    sharded over ``mesh`` on B windows (with the lanes' draws, if given)."""
+    return batch_temporal_frontend(cfg, mesh=mesh)(rgbs, depths, jitter,
+                                                   gumbel)

@@ -13,10 +13,12 @@ config with 300 features; lane 0 has a mover).
   all of them);
 - lanes against ``single_pair`` called alone on each pair with the same
   generator's draws: equal;
-- ``batch_temporal_frontend`` lanes against ``frontend_step`` run alone
-  over each lane's window from ``init_state(seed=0)``: equal
+- ``batch_temporal_frontend`` lanes (one ``frontend_step`` call a frame
+  for all of them) against ``frontend_step`` run alone over each lane's
+  window from ``init_state(seed=0)``: equal, with one lane's regime flipping
   (``frontend_step`` itself is held against JAX's in
-  ``tests/test_torch_frontend.py``).
+  ``tests/test_torch_frontend.py``, the lanes against JAX's in
+  ``tests/test_torch_temporal_lanes.py``).
 """
 
 import numpy as np
@@ -123,15 +125,19 @@ def test_batch_lanes_match_single_pairs(frames):
 
 
 def test_temporal_lanes_match_frontend_step(frames):
-    rgbs = np.stack([np.stack([f[0] for f in frames[:3]]),
-                     np.stack([f[0] for f in frames[2:5]])])
-    depths = np.stack([np.stack([f[1] for f in frames[:3]]),
-                       np.stack([f[1] for f in frames[2:5]])])
+    """Two ``dyn_walk`` windows and a ``fast_cam`` one (seed 1), whose
+    regime flips to n->n-1 at its frame 1 while the others keep theirs."""
+    fast, _ = make_benchmark_sequence("fast_cam", n_frames=3, seed=1,
+                                      scale=SCALE)
+    wins = (frames[:3], frames[2:5], fast)
+    rgbs = np.stack([np.stack([f[0] for f in win]) for win in wins])
+    depths = np.stack([np.stack([f[1] for f in win]) for win in wins])
     masks, large, n_feats = tb.batch_temporal_frontend(TCFG, device="cpu")(
         torch.from_numpy(rgbs), torch.from_numpy(depths))
-    assert masks.shape == (2, 3, TCFG.camera.height, TCFG.camera.width)
+    assert masks.shape == (3, 3, TCFG.camera.height, TCFG.camera.width)
     assert large.dtype == torch.bool and n_feats.dtype == torch.int32
-    for b in range(2):
+    assert large[2].any() and not large[:2].any(), large
+    for b in range(3):
         st = init_state(TCFG, t_im.rgb_to_gray(torch.from_numpy(rgbs[b, 0])),
                         device="cpu")
         for t in range(3):
