@@ -3171,11 +3171,12 @@ def main() -> int:
             _, st = fp.frontend_step(rgbs[i], depths[i], st, cfg)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t1)
-    # device-side events; the frontend/* ranges also appear on the device
-    # and span whole stages, so they are not kernels
+    # device-side events; every named range of the program also appears on
+    # the device as a user annotation over the operations it launched,
+    # which is no operation itself
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.name.startswith("frontend/")]
+                  and not e.is_user_annotation]
     busy = busy_us(dev_events)
     print(f"profiled {n_prof} frames: {wall_us / 1e3 / n_prof:.2f} ms/frame "
           f"under the profiler, device busy {busy / 1e3 / n_prof:.2f} ms/frame"

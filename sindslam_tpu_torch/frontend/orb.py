@@ -30,6 +30,7 @@ from sindslam_tpu_torch.config import ORBConfig
 from sindslam_tpu_torch.frontend.rag_merge import top_k_stable
 from sindslam_tpu_torch.ops import cuda_kernels as ck
 from sindslam_tpu_torch.ops import image as im
+from sindslam_tpu_torch.utils.profiling import span
 
 _PATCH_RADIUS = 15      # IC-angle circular patch (HALF_PATCH_SIZE)
 _BRIEF_RADIUS = 13      # descriptor sampling radius
@@ -271,66 +272,73 @@ def extract_orb(gray: torch.Tensor, dyna_mask: torch.Tensor, cfg: ORBConfig,
     dynamic pixels (mask == 255) with the < min_keypoints revert rule; each
     level over-selects and refills erased keypoints with the next best.
     (B, H, W) stacks of images and masks give features stacked (B, N,
-    ...)."""
+    ...). Its parts are the named ranges ``orb/atlas``, ``orb/fields``,
+    ``orb/select`` and ``orb/describe``."""
     shapes, offs, atlas_h, layout = _atlas_layout(height, width, cfg.n_levels,
                                                   cfg.scale_factor)
     quotas = level_quotas(cfg.n_features, cfg.n_levels, cfg.scale_factor)
     dev = gray.device
     lead = gray.shape[:-2]
     batched = bool(lead)
-    level_offs = _atlas_offsets_on(tuple(offs), dev)
-    g = gray.to(torch.float32)
-    atlas = torch.zeros((*lead, atlas_h, width), dtype=torch.float32,
-                        device=dev)
-    level_img = g
-    for l, ((lh, lw), y0) in enumerate(zip(shapes, offs)):
-        if l > 0:
-            level_img = im.resize_bilinear(level_img, (lh, lw))
-        atlas[..., y0:y0 + lh, :lw] = level_img
-    # every level in one launch; each level's scores are a view of the result
-    scores = ck.fast_nms(atlas, float(cfg.min_th_fast), float(cfg.ini_th_fast),
-                         levels=layout)
-    level_scores = [scores[..., y0:y0 + lh, :lw]
-                    for (lh, lw), y0 in zip(shapes, offs)]
-    m10_img, m01_img = ic_angle_fields(atlas)
-    blur = im.gaussian_blur(atlas, 7, 2.0)
+    with span("orb/atlas"):
+        level_offs = _atlas_offsets_on(tuple(offs), dev)
+        g = gray.to(torch.float32)
+        atlas = torch.zeros((*lead, atlas_h, width), dtype=torch.float32,
+                            device=dev)
+        level_img = g
+        for l, ((lh, lw), y0) in enumerate(zip(shapes, offs)):
+            if l > 0:
+                level_img = im.resize_bilinear(level_img, (lh, lw))
+            atlas[..., y0:y0 + lh, :lw] = level_img
+        # every level in one launch; each level's scores are a view of the
+        # result
+        scores = ck.fast_nms(atlas, float(cfg.min_th_fast),
+                             float(cfg.ini_th_fast), levels=layout)
+        level_scores = [scores[..., y0:y0 + lh, :lw]
+                        for (lh, lw), y0 in zip(shapes, offs)]
 
-    feats_xy, feats_lvl, feats_score, yx_atlas = [], [], [], []
-    for l, ((lh, lw), y0, quota) in enumerate(zip(shapes, offs, quotas)):
-        score = _border_mask(level_scores[l], _EDGE_MARGIN)
-        refill = max(quota // 2, 8)
-        yx2, sc2 = _cell_candidates(score, quota + refill)
-        xy2 = torch.stack([yx2[..., 1], yx2[..., 0]], -1).to(torch.float32) \
-            * (cfg.scale_factor ** l)
-        cx2 = torch.clamp(xy2[..., 0].to(torch.int64), 0, width - 1)
-        cy2 = torch.clamp(xy2[..., 1].to(torch.int64), 0, height - 1)
-        dyn2 = _at_pixels(dyna_mask, cy2, cx2) == 255
-        s_pen = torch.where(dyn2, sc2 - 1e6, sc2)
-        _, keep = top_k_stable(s_pen, quota)
-        feats_xy.append(im.lane_index(xy2, keep, batched))
-        feats_lvl.append(torch.full((*lead, quota), l, dtype=torch.int32,
-                                    device=dev))
-        feats_score.append(im.lane_index(sc2, keep, batched))
-        yx_atlas.append(im.lane_index(yx2, keep, batched) + level_offs[l])
+    with span("orb/fields"):
+        m10_img, m01_img = ic_angle_fields(atlas)
+        blur = im.gaussian_blur(atlas, 7, 2.0)
 
-    yx_all = torch.cat(yx_atlas, -2)
-    flat_idx = yx_all[..., 0] * width + yx_all[..., 1]
+    with span("orb/select"):
+        feats_xy, feats_lvl, feats_score, yx_atlas = [], [], [], []
+        for l, ((lh, lw), y0, quota) in enumerate(zip(shapes, offs, quotas)):
+            score = _border_mask(level_scores[l], _EDGE_MARGIN)
+            refill = max(quota // 2, 8)
+            yx2, sc2 = _cell_candidates(score, quota + refill)
+            xy2 = torch.stack([yx2[..., 1], yx2[..., 0]],
+                              -1).to(torch.float32) * (cfg.scale_factor ** l)
+            cx2 = torch.clamp(xy2[..., 0].to(torch.int64), 0, width - 1)
+            cy2 = torch.clamp(xy2[..., 1].to(torch.int64), 0, height - 1)
+            dyn2 = _at_pixels(dyna_mask, cy2, cx2) == 255
+            s_pen = torch.where(dyn2, sc2 - 1e6, sc2)
+            _, keep = top_k_stable(s_pen, quota)
+            feats_xy.append(im.lane_index(xy2, keep, batched))
+            feats_lvl.append(torch.full((*lead, quota), l, dtype=torch.int32,
+                                        device=dev))
+            feats_score.append(im.lane_index(sc2, keep, batched))
+            yx_atlas.append(im.lane_index(yx2, keep, batched) + level_offs[l])
 
-    def at(img):
-        return torch.gather(img.reshape(*lead, -1), -1, flat_idx)
+    with span("orb/describe"):
+        yx_all = torch.cat(yx_atlas, -2)
+        flat_idx = yx_all[..., 0] * width + yx_all[..., 1]
 
-    ang = _atan2(at(m01_img), at(m10_img))
-    desc = brief_descriptors(blur, yx_all, ang)
+        def at(img):
+            return torch.gather(img.reshape(*lead, -1), -1, flat_idx)
 
-    xy = torch.cat(feats_xy, -2)
-    lvl = torch.cat(feats_lvl, -1)
-    sc = torch.cat(feats_score, -1)
-    valid = torch.isfinite(sc) & (sc > 0)
-    mx = torch.clamp(xy[..., 0].to(torch.int64), 0, width - 1)
-    my = torch.clamp(xy[..., 1].to(torch.int64), 0, height - 1)
-    survivors = valid & ~(_at_pixels(dyna_mask, my, mx) == 255)
-    revert = torch.sum(survivors, -1) < cfg.min_keypoints_after_mask
-    valid = torch.where(revert[..., None], valid, survivors)
+        ang = _atan2(at(m01_img), at(m10_img))
+        desc = brief_descriptors(blur, yx_all, ang)
+
+        xy = torch.cat(feats_xy, -2)
+        lvl = torch.cat(feats_lvl, -1)
+        sc = torch.cat(feats_score, -1)
+        valid = torch.isfinite(sc) & (sc > 0)
+        mx = torch.clamp(xy[..., 0].to(torch.int64), 0, width - 1)
+        my = torch.clamp(xy[..., 1].to(torch.int64), 0, height - 1)
+        survivors = valid & ~(_at_pixels(dyna_mask, my, mx) == 255)
+        revert = torch.sum(survivors, -1) < cfg.min_keypoints_after_mask
+        valid = torch.where(revert[..., None], valid, survivors)
     return OrbFeatures(xy=xy, level=lvl, angle=ang, score=sc, desc=desc,
                        valid=valid)
 

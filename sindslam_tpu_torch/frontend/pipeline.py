@@ -40,6 +40,7 @@ from sindslam_tpu_torch.ops import flow as flow_ops
 from sindslam_tpu_torch.ops import image as im
 from sindslam_tpu_torch.ops.homography import gumbel_draws
 from sindslam_tpu_torch.slam.frame import _depth_ur
+from sindslam_tpu_torch.utils.profiling import span
 
 
 class FrontendState(NamedTuple):
@@ -154,20 +155,24 @@ def frontend_step(rgb, depth_m, state: FrontendState, cfg: SystemConfig,
 
     ``jitter`` (H, W) standard-normal and ``gumbel`` (ransac_iters, N)
     standard-Gumbel draws ((B, H, W) and (B, ransac_iters, N) of lanes)
-    replace the state generator's when given."""
+    replace the state generator's when given.
+
+    The draws and each stage are named ranges (``frontend/*``, through
+    ``profiling.span``)."""
     dev = state.prev_mask.device
     h, w = cfg.camera.height, cfg.camera.width
     rgb = _as_tensor(rgb, dev)
     depth_m = _as_tensor(depth_m, dev, torch.float32)
     lanes = isinstance(state.prev_large, torch.Tensor)
-    jitter, gumbel = _draws(state, cfg, dev, jitter, gumbel)
+    with span("frontend/draws"):
+        jitter, gumbel = _draws(state, cfg, dev, jitter, gumbel)
 
-    stage = torch.profiler.record_function   # named ranges for profiling
-    with stage("frontend/flow"):
+    with span("frontend/flow"):
         gray = im.rgb_to_gray(rgb)
         valid = (depth_m > 0.05) & (depth_m <= cfg.dyna.max_depth_m)
         # flow n -> n-2, large-motion fallback to n -> n-1
-        pyr_cur = flow_ops.working_pyramid(gray, cfg.flow)
+        with span("flow/pyramid"):
+            pyr_cur = flow_ops.working_pyramid(gray, cfg.flow)
         u, v, large_motion, photo_err, flow_raw_w = \
             flow_ops.flow_fallback_from_pyramids(
                 pyr_cur, state.pyr_m1, state.pyr_m2, valid, state.prev_large,
@@ -178,23 +183,23 @@ def frontend_step(rgb, depth_m, state: FrontendState, cfg: SystemConfig,
         unreliable = photo_err > cfg.dyna.photo_err_max
 
     # geometry branch
-    with stage("frontend/kmeans"):
+    with span("frontend/kmeans"):
         kml, _centers = seg_by_kmeans(depth_m, cfg.camera, cfg.dyna,
                                       state.prev_labels)
-    with stage("frontend/edges"):
+    with span("frontend/edges"):
         er = cal_occluded(depth_m, cfg.camera, cfg.dyna)
-    with stage("frontend/rag_merge"):
+    with span("frontend/rag_merge"):
         rr = rag_merge(kml, er.occluded1, er.occluded2, er.total_area,
                        depth_m, cfg.dyna)
 
-    with stage("frontend/flow_mask"):
+    with span("frontend/flow_mask"):
         wmap = sample_weights(state.prev_mask, state.ratio_img, cfg.dyna,
                               jitter)
         fm = flow_residual_mask(
             u, v, wmap, valid, cfg.dyna, gumbel, depth_m=depth_m,
             unreliable=unreliable,
             prev_dyn=state.prev_mask == cfg.dyna.mask_dynamic)
-    with stage("frontend/fusion"):
+    with span("frontend/fusion"):
         fu = fuse_masks(fm.low_mask, fm.high_mask, state.prev_high,
                         rr.label_img, valid, cfg.dyna,
                         prev_ratio_img=state.ratio_img,
@@ -205,7 +210,7 @@ def frontend_step(rgb, depth_m, state: FrontendState, cfg: SystemConfig,
                                     if lanes else
                                     1.0 if large_motion else 0.5))
 
-    with stage("frontend/orb"):
+    with span("frontend/orb"):
         # driver-side dilation, applied only to the feature-erasure mask
         dyn_wide = im.dilate_ellipse(
             (fu.dyna_mask == cfg.dyna.mask_dynamic).to(torch.float32),

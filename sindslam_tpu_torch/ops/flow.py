@@ -22,6 +22,8 @@ import torch
 from sindslam_tpu_torch.config import FlowConfig
 from sindslam_tpu_torch.ops import cuda_kernels as ck
 from sindslam_tpu_torch.ops import image as im
+from sindslam_tpu_torch.utils import profiling
+from sindslam_tpu_torch.utils.profiling import span
 
 
 def _grad(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -172,6 +174,10 @@ def flow_fallback_from_pyramids(
     selects (the reference's ``vmap`` of its ``lax.cond``). The one host
     read is the count of lanes that flipped: with none the restart is not
     run, with all the continuation is not.
+
+    Its parts are named ranges (``flow/presolve``, ``flow/decide``,
+    ``flow/finish``, ``flow/restart``, ``flow/photo``), and
+    ``profiling.flow_restarts`` counts the calls that ran the restart.
     """
     H, W = out_hw
     shapes = [tuple(p.shape[-2:]) for p in pyr_cur]
@@ -183,41 +189,54 @@ def flow_fallback_from_pyramids(
     if not lanes:
         prev_large = bool(prev_large)
 
-    pyr_t1 = tuple(_pick(prev_large, a, b) for a, b in zip(pyr_m1, pyr_m2))
-    ch, cw = shapes[-1]
-    u0 = torch.zeros((*pyr_cur[0].shape[:-2], ch, cw), dtype=torch.float32,
-                     device=dev)
-    v0 = torch.zeros_like(u0)
-    u_c, v_c = _solve_pyramid_range(pyr_cur, pyr_t1, u0, v0, cfg, top, k)
+    with span("flow/presolve"):
+        pyr_t1 = tuple(_pick(prev_large, a, b)
+                       for a, b in zip(pyr_m1, pyr_m2))
+        ch, cw = shapes[-1]
+        u0 = torch.zeros((*pyr_cur[0].shape[:-2], ch, cw),
+                         dtype=torch.float32, device=dev)
+        v0 = torch.zeros_like(u0)
+        u_c, v_c = _solve_pyramid_range(pyr_cur, pyr_t1, u0, v0, cfg, top, k)
 
-    # magnitude test in full-resolution n->n-2-equivalent pixels
-    lh, lw = shapes[k]
-    mag_scale = (torch.where(prev_large, 2.0, 1.0)[:, None, None] if lanes
-                 else 2.0 if prev_large else 1.0)
-    mag = torch.sqrt((u_c * (W / lw)) ** 2 + (v_c * (H / lh)) ** 2) * mag_scale
-    val_c = im.resize_bilinear(valid_full.to(torch.float32), (lh, lw)) > 0.5
-    n_ok = torch.sum(val_c, (-2, -1)) + 1e-9
-    frac_below = torch.sum((mag <= large_motion_flow_px) & val_c,
-                           (-2, -1)) / n_ok
-    frac_below_wide = torch.sum((mag <= compose_max_flow_px) & val_c,
-                                (-2, -1)) / n_ok
-    large_motion = frac_below < large_motion_frac
-    compose_ok = frac_below_wide >= large_motion_frac
+    with span("flow/decide"):
+        # magnitude test in full-resolution n->n-2-equivalent pixels
+        lh, lw = shapes[k]
+        mag_scale = (torch.where(prev_large, 2.0, 1.0)[:, None, None]
+                     if lanes else 2.0 if prev_large else 1.0)
+        mag = torch.sqrt((u_c * (W / lw)) ** 2
+                         + (v_c * (H / lh)) ** 2) * mag_scale
+        val_c = im.resize_bilinear(valid_full.to(torch.float32),
+                                   (lh, lw)) > 0.5
+        n_ok = torch.sum(val_c, (-2, -1)) + 1e-9
+        frac_below = torch.sum((mag <= large_motion_flow_px) & val_c,
+                               (-2, -1)) / n_ok
+        frac_below_wide = torch.sum((mag <= compose_max_flow_px) & val_c,
+                                    (-2, -1)) / n_ok
+        large_motion = frac_below < large_motion_frac
+        compose_ok = frac_below_wide >= large_motion_frac
+        if lanes:
+            flip = large_motion != prev_large
+            n_flip = int(flip.sum())       # the step's one host read
+        else:
+            large_motion = bool(large_motion)
+            compose_ok = bool(compose_ok)
 
     def cont():
-        return (_solve_pyramid_range(pyr_cur, pyr_t1, u_c, v_c, cfg, k - 1, 0)
-                if k > 0 else (u_c, v_c))
+        with span("flow/finish"):
+            return (_solve_pyramid_range(pyr_cur, pyr_t1, u_c, v_c, cfg,
+                                         k - 1, 0)
+                    if k > 0 else (u_c, v_c))
 
     def restart():
         # the decision flipped the prediction: full solve against the target
         # the decision chose
-        pyr_t2 = tuple(_pick(large_motion, a, b)
-                       for a, b in zip(pyr_m1, pyr_m2))
-        return _solve_pyramid_range(pyr_cur, pyr_t2, u0, v0, cfg, top, 0)
+        profiling.flow_restarts += 1
+        with span("flow/restart"):
+            pyr_t2 = tuple(_pick(large_motion, a, b)
+                           for a, b in zip(pyr_m1, pyr_m2))
+            return _solve_pyramid_range(pyr_cur, pyr_t2, u0, v0, cfg, top, 0)
 
     if lanes:
-        flip = large_motion != prev_large
-        n_flip = int(flip.sum())       # the step's one host read
         if n_flip == 0:
             u, v = cont()
         elif n_flip == flip.shape[0]:
@@ -226,32 +245,31 @@ def flow_fallback_from_pyramids(
             (uc, vc), (ur, vr) = cont(), restart()
             u, v = _pick(flip, ur, uc), _pick(flip, vr, vc)
     else:
-        large_motion = bool(large_motion)
-        compose_ok = bool(compose_ok)
         u, v = cont() if large_motion == prev_large else restart()
 
-    # photometric consistency of the final flow at working scale
-    target_l0 = _pick(large_motion, pyr_m1[0], pyr_m2[0])
-    warped, inb = im.warp_by_flow(target_l0, u, v)
-    photo_err_w = torch.where(inb, torch.abs(warped - pyr_cur[0]), 1.0)
-    photo_err = im.resize_bilinear(photo_err_w, (H, W))
+    with span("flow/photo"):
+        # photometric consistency of the final flow at working scale
+        target_l0 = _pick(large_motion, pyr_m1[0], pyr_m2[0])
+        warped, inb = im.warp_by_flow(target_l0, u, v)
+        photo_err_w = torch.where(inb, torch.abs(warped - pyr_cur[0]), 1.0)
+        photo_err = im.resize_bilinear(photo_err_w, (H, W))
 
-    # wide-baseline composition for the detection field
-    u_det, v_det = u, v
-    if prev_flow_w is not None:
-        pu, pv = prev_flow_w
-        cu, cinb = im.warp_by_flow(pu, u, v)
-        cv, _ = im.warp_by_flow(pv, u, v)
-        if lanes:
-            gate = (large_motion & compose_ok)[:, None, None] & cinb
-            u_det = torch.where(gate, u + cu, u)
-            v_det = torch.where(gate, v + cv, v)
-        elif large_motion and compose_ok:
-            u_det = torch.where(cinb, u + cu, u)
-            v_det = torch.where(cinb, v + cv, v)
+        # wide-baseline composition for the detection field
+        u_det, v_det = u, v
+        if prev_flow_w is not None:
+            pu, pv = prev_flow_w
+            cu, cinb = im.warp_by_flow(pu, u, v)
+            cv, _ = im.warp_by_flow(pv, u, v)
+            if lanes:
+                gate = (large_motion & compose_ok)[:, None, None] & cinb
+                u_det = torch.where(gate, u + cu, u)
+                v_det = torch.where(gate, v + cv, v)
+            elif large_motion and compose_ok:
+                u_det = torch.where(cinb, u + cu, u)
+                v_det = torch.where(cinb, v + cv, v)
 
-    u_full = im.resize_bilinear(u_det, (H, W)) * (W / ww)
-    v_full = im.resize_bilinear(v_det, (H, W)) * (H / wh)
+        u_full = im.resize_bilinear(u_det, (H, W)) * (W / ww)
+        v_full = im.resize_bilinear(v_det, (H, W)) * (H / wh)
     return u_full, v_full, large_motion, photo_err, (u, v, compose_ok)
 
 

@@ -25,6 +25,7 @@ from typing import Tuple
 import torch
 
 from sindslam_tpu_torch.ops.image import lane_index, lane_matmul, per_lane
+from sindslam_tpu_torch.utils.profiling import span
 
 
 def _normalize_points(pts: torch.Tensor, w: torch.Tensor
@@ -165,30 +166,33 @@ def ransac_homography(src: torch.Tensor, dst: torch.Tensor,
     (B, N, 2) points, (B, N) weights, (B, n_hypotheses, N) draws.
 
     Returns (H (3, 3), inlier_mask (N,) bool), or (B, ...) of a stack."""
-    batched = src.dim() == 3
-    logw = _log(weights + 1e-12)
-    g = gumbel + logw[..., None, :]
-    idx = torch.topk(g, 4, dim=-1).indices                 # (n_hyp, 4)
-    H_all = dlt4_homography(lane_index(src, idx, batched),
-                            lane_index(dst, idx, batched))
-    proj = apply_homography(H_all, src[..., None, :, :] if batched else src)
-    err2 = torch.sum((proj - dst[..., None, :, :]) ** 2, -1)  # (n_hyp, N)
-    valid = (weights > 0)[..., None, :]
-    inl = (err2 < thresh_px * thresh_px) & valid
-    finite = torch.all(torch.isfinite(H_all).flatten(-2), -1)
-    score = torch.sum(inl, -1) * finite
-    best = torch.argmax(score, -1)
-    H_best = lane_index(H_all, best, batched)
-    inliers = lane_index(inl, best, batched)
+    with span("homography/ransac"):
+        batched = src.dim() == 3
+        logw = _log(weights + 1e-12)
+        g = gumbel + logw[..., None, :]
+        idx = torch.topk(g, 4, dim=-1).indices                 # (n_hyp, 4)
+        H_all = dlt4_homography(lane_index(src, idx, batched),
+                                lane_index(dst, idx, batched))
+        proj = apply_homography(H_all,
+                                src[..., None, :, :] if batched else src)
+        # (n_hyp, N)
+        err2 = torch.sum((proj - dst[..., None, :, :]) ** 2, -1)
+        valid = (weights > 0)[..., None, :]
+        inl = (err2 < thresh_px * thresh_px) & valid
+        finite = torch.all(torch.isfinite(H_all).flatten(-2), -1)
+        score = torch.sum(inl, -1) * finite
+        best = torch.argmax(score, -1)
+        H_best = lane_index(H_all, best, batched)
+        inliers = lane_index(inl, best, batched)
 
-    # refit on inliers (weighted full DLT), then recompute inliers once
-    H_ref = dlt_homography(src, dst, inliers.to(src.dtype))
-    err2_r = torch.sum((apply_homography(H_ref, src) - dst) ** 2, -1)
-    inl_r = (err2_r < thresh_px * thresh_px) & (weights > 0)
-    better = (torch.sum(inl_r, -1) >= torch.sum(inliers, -1)) & \
-        torch.all(torch.isfinite(H_ref).flatten(-2), -1)
-    return (torch.where(better[..., None, None], H_ref, H_best),
-            torch.where(better[..., None], inl_r, inliers))
+        # refit on inliers (weighted full DLT), then recompute inliers once
+        H_ref = dlt_homography(src, dst, inliers.to(src.dtype))
+        err2_r = torch.sum((apply_homography(H_ref, src) - dst) ** 2, -1)
+        inl_r = (err2_r < thresh_px * thresh_px) & (weights > 0)
+        better = (torch.sum(inl_r, -1) >= torch.sum(inliers, -1)) & \
+            torch.all(torch.isfinite(H_ref).flatten(-2), -1)
+        return (torch.where(better[..., None, None], H_ref, H_best),
+                torch.where(better[..., None], inl_r, inliers))
 
 
 def homography_flow(H: torch.Tensor, height: int, width: int

@@ -4,8 +4,9 @@
 The reference instruments every DynaDetect stage with ``cv::getTickCount``
 and prints running means per frame (``src/DynaDetect.cc:1384,1643-1649``,
 the example program's timers ``rgbd_tum_noros.cc:198-209``). This module keeps that CLI
-feature: named stage timers with running statistics, plus an optional
-``torch.profiler`` trace context for device-level inspection.
+feature: named stage timers with running statistics. It also holds the
+program's named ranges (``span``) and an always-on host counter of the
+front-end's flow restarts, which a profiler run or a benchmark reads.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import defaultdict
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator
 
 import torch
 
@@ -55,20 +56,19 @@ class StageTimer:
         return "stage timing (means):\n" + "\n".join(lines)
 
 
-@contextlib.contextmanager
-def device_trace(log_dir: Optional[str]) -> Iterator[None]:
-    """Optional ``torch.profiler`` trace of host and device activity,
-    written as a Chrome trace into ``log_dir`` (open with Perfetto or
-    ``chrome://tracing``)."""
-    if not log_dir:
-        yield
-        return
-    import os
+_OFF = contextlib.nullcontext()
 
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+# the calls of ``ops.flow.flow_fallback_from_pyramids`` that restarted the
+# pyramid against the other target, since the process started: a host
+# integer, counted where the decision is already on the host, never reset
+# by the program
+flow_restarts = 0
+
+
+def span(name: str):
+    """A named host range on the profiler's clock while a ``torch.profiler``
+    runs; otherwise a shared empty context that makes no dispatcher call.
+    Adds no device operation and no synchronisation."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF

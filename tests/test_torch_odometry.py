@@ -38,7 +38,7 @@ from sindslam_tpu_torch.frontend import orb as t_orb
 from sindslam_tpu_torch.ops import image as t_im
 from sindslam_tpu_torch.slam import frame as t_frame
 from sindslam_tpu_torch.slam import tracking as t_track
-from sindslam_tpu_torch.utils.profiling import StageTimer, device_trace
+from sindslam_tpu_torch.utils.profiling import StageTimer
 
 torch.set_num_threads(2)
 
@@ -278,7 +278,7 @@ def test_evaluation_equals_the_jax_package():
             dataclasses.asdict(j_bench.scaled_system_config(scale, nf))
 
 
-def test_stage_timer_and_device_trace(tmp_path):
+def test_stage_timer():
     timer = StageTimer("cpu")
     for _ in range(3):
         with timer.stage("work"):
@@ -288,8 +288,3 @@ def test_stage_timer_and_device_trace(tmp_path):
     assert timer.count["work"] == 3 and timer.mean_ms("work") >= 0.0
     rep = timer.report()
     assert "work" in rep and "(x3)" in rep and "other" in rep
-    with device_trace(None):
-        pass
-    with device_trace(str(tmp_path / "trace")):
-        torch.ones(10).sum()
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0

@@ -1,0 +1,206 @@
+"""The front-end's named ranges and counters (``utils/profiling.py``), on
+the CPU at a quarter of 640x480 (the scaled config with 300 features, as
+``tests/test_torch_batch_frontend.py`` runs it; ``dyn_walk``, whose slow
+motion decides n->n-2 whatever the prediction):
+
+- under ``torch.profiler`` a step records every span of the front-end,
+  each inside its stage, and the stages' names as the benchmark reads them;
+- with no profiler running, ``span`` enters no ``record_function``;
+- a step's outputs and next state are the same with the profiler on and
+  off;
+- ``flow_restarts`` counts one a call whose flow restarted, in both
+  forms, whether one lane or every lane restarted;
+- importing the module starts no CUDA.
+"""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from sindslam_tpu_torch.datasets.synthetic import make_benchmark_sequence
+from sindslam_tpu_torch.evaluation.benchmark import scaled_system_config
+from sindslam_tpu_torch.frontend import pipeline as tp
+from sindslam_tpu_torch.ops import image as im
+from sindslam_tpu_torch.utils import profiling
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCALE, N_FEATURES = 0.25, 300
+CFG = scaled_system_config(SCALE, N_FEATURES)
+STAGES = ("frontend/flow", "frontend/kmeans", "frontend/edges",
+          "frontend/rag_merge", "frontend/flow_mask", "frontend/fusion",
+          "frontend/orb")
+# each span inside a stage, by the stage it sits in
+PARENT = {
+    "flow/pyramid": "frontend/flow", "flow/presolve": "frontend/flow",
+    "flow/decide": "frontend/flow", "flow/finish": "frontend/flow",
+    "flow/restart": "frontend/flow", "flow/photo": "frontend/flow",
+    "orb/atlas": "frontend/orb", "orb/fields": "frontend/orb",
+    "orb/select": "frontend/orb", "orb/describe": "frontend/orb",
+    "homography/ransac": "frontend/flow_mask",
+}
+TOP = STAGES + ("frontend/draws",)
+
+
+@pytest.fixture(scope="module")
+def frames():
+    fs, _ = make_benchmark_sequence("dyn_walk", n_frames=3, seed=0,
+                                    scale=SCALE)
+    return [(torch.from_numpy(f[0]), torch.from_numpy(f[1])) for f in fs]
+
+
+def _state(frames, lanes=0):
+    gray = im.rgb_to_gray(frames[0][0])
+    if lanes:
+        gray = torch.stack([gray] * lanes)
+    return tp.init_state(CFG, gray, device="cpu", seed=0)
+
+
+def _frame(frames, k, lanes=0):
+    rgb, depth = frames[k]
+    if lanes:
+        return torch.stack([rgb] * lanes), torch.stack([depth] * lanes)
+    return rgb, depth
+
+
+def _ranges(prof):
+    """(name, start_ns, end_ns) of every named host range a profiler
+    recorded."""
+    return [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if "/" in e.name()]
+
+
+def _profiled_step(frames, state, lanes=0):
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out, _ = tp.frontend_step(*_frame(frames, 1, lanes), state, CFG)
+    return out, _ranges(prof)
+
+
+# dyn_walk decides n->n-2: a prediction of n->n-1 restarts, and of two
+# lanes predicting n->n-2 and n->n-1 one continues and one restarts
+@pytest.mark.parametrize("form", ["continue", "restart", "lanes"])
+def test_a_step_records_every_span_inside_its_stage(frames, form):
+    if form == "lanes":
+        state = _state(frames, 2)._replace(
+            prev_large=torch.tensor([False, True]))
+        out, ranges = _profiled_step(frames, state, 2)
+        assert out.large_motion.tolist() == [False, False]
+        solves = {"flow/finish", "flow/restart"}
+    else:
+        state = _state(frames)._replace(prev_large=form == "restart")
+        out, ranges = _profiled_step(frames, state)
+        assert out.large_motion is False
+        solves = {"flow/restart" if form == "restart" else "flow/finish"}
+    names = [r[0] for r in ranges]
+    expected = set(TOP) | (set(PARENT) - {"flow/finish", "flow/restart"}) \
+        | solves
+    assert set(names) == expected
+    assert all(names.count(n) == 1 for n in expected)
+    # any two ranges are apart or one holds the other
+    for a in ranges:
+        for b in ranges:
+            apart = a[2] <= b[1] or b[2] <= a[1]
+            holds = (a[1] <= b[1] and b[2] <= a[2]) or \
+                (b[1] <= a[1] and a[2] <= b[2])
+            assert apart or holds, (a, b)
+
+    def inside(child, parent):
+        return parent[1] <= child[1] and child[2] <= parent[2]
+
+    for r in ranges:
+        holders = {p[0] for p in ranges if p is not r and inside(r, p)}
+        if r[0] in TOP:
+            assert not holders & set(TOP), (r, holders)
+        else:
+            assert PARENT[r[0]] in holders, (r, holders)
+
+
+def test_span_enters_no_record_function_with_no_profiler(frames,
+                                                        monkeypatch):
+    def refuse(name):
+        raise RuntimeError(f"record_function({name!r}) entered")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    assert not torch.autograd._profiler_enabled()
+    assert profiling.span("a/b") is profiling.span("c/d")
+    tp.frontend_step(*_frame(frames, 1), _state(frames), CFG)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with pytest.raises(RuntimeError, match="entered"):
+            profiling.span("a/b")
+
+
+def _equal(a, b):
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, torch.Generator):
+        return torch.equal(a.get_state(), b.get_state())
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def test_a_frame_is_the_same_with_the_profiler_on_and_off(frames):
+    off, on = _state(frames), _state(frames)
+    for k in (1, 2):
+        out_off, off = tp.frontend_step(*_frame(frames, k), off, CFG)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            out_on, on = tp.frontend_step(*_frame(frames, k), on, CFG)
+        assert _equal(tuple(out_off), tuple(out_on)), k
+        assert _equal(tuple(off), tuple(on)), k
+
+
+# every lane predicting n->n-1 on dyn_walk: every lane restarts, and the
+# call counts one, as the single form's does
+@pytest.mark.parametrize("lanes", [0, 2])
+def test_flow_restarts_counts_one_a_call_whoever_restarts(frames, lanes):
+    state = _state(frames, lanes)
+    state = state._replace(prev_large=torch.ones(lanes, dtype=torch.bool)
+                           if lanes else True)
+    before = profiling.flow_restarts
+    out, _ = tp.frontend_step(*_frame(frames, 1, lanes), state, CFG)
+    assert not torch.as_tensor(out.large_motion).any()
+    assert profiling.flow_restarts == before + 1
+    tp.frontend_step(*_frame(frames, 2, lanes), state, CFG)
+    assert profiling.flow_restarts == before + 2
+
+
+def test_flow_restarts_counts_the_calls_that_restart(frames):
+    state = _state(frames)
+    seen = {}
+    for prev in (False, True):
+        before = profiling.flow_restarts
+        out, _ = tp.frontend_step(*_frame(frames, 1),
+                                  state._replace(prev_large=prev), CFG)
+        seen[prev] = profiling.flow_restarts - before
+        assert seen[prev] == int(out.large_motion != prev)
+    assert seen == {False: 0, True: 1}
+    # lanes: one flipped, one continued, one restart for the call
+    lanes = _state(frames, 2)._replace(prev_large=torch.tensor([False, True]))
+    before = profiling.flow_restarts
+    out, _ = tp.frontend_step(*_frame(frames, 1, 2), lanes, CFG)
+    flip = out.large_motion != lanes.prev_large
+    assert flip.tolist() == [False, True]
+    assert profiling.flow_restarts == before + 1
+    lanes = lanes._replace(prev_large=torch.tensor([False, False]))
+    before = profiling.flow_restarts
+    tp.frontend_step(*_frame(frames, 1, 2), lanes, CFG)
+    assert profiling.flow_restarts == before
+
+
+def test_importing_profiling_starts_no_cuda():
+    code = ("import torch, sindslam_tpu_torch.utils.profiling as p; "
+            "p.span('a/b'); assert not torch.cuda.is_initialized(); "
+            "print(p.flow_restarts)")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["0"]

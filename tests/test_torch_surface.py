@@ -67,6 +67,9 @@ NOT_PORTED = {
         "the JAX CPU twin of kernel K2",
     ("slam/optimizer.py", "pose_optimization_jit"):
         "a jax.jit wrapper that nothing calls",
+    ("utils/profiling.py", "device_trace"):
+        "a Chrome-trace exporter that nothing calls; the port's named "
+        "ranges (span) are read from a torch.profiler run by its caller",
 }
 
 
