@@ -35,7 +35,9 @@
    0.99 equal, keypoint IoU 0.95);
 6. runs frames 2-6 again under ``torch.profiler`` and prints the device's
    busy time and idle share per frame, the host time per stage and the
-   device time of the top kernels and the host-to-device copies per frame;
+   device time of the top kernels and the host-to-device copies per frame,
+   and holds K1's launch counter (which the flow's CUDA graph replays add
+   to from their captures) to the K1 launches the trace shows;
 7. holds tracking on the card against tracking on the CPU: two consecutive
    frames' features from the 640x480 run go through the matcher,
    ``track_against_frame`` and ``full_track_step`` (the map being the
@@ -435,7 +437,9 @@ class Recorder:
     """Wraps the kernel wrappers of ``cuda_kernels`` and keeps, per kernel
     and call signature (K1: per level shape, K2: per sweep budget), the
     inputs of the last of the largest non-trivial calls the main path
-    made."""
+    made. The flow's level ranges run call by call meanwhile
+    (``ops/flow.py``'s ``_eager_range`` in ``_solve_range``'s place): a
+    CUDA graph's replay calls no wrapper."""
 
     def __init__(self, torch, ck):
         self.torch, self.ck = torch, ck
@@ -447,11 +451,16 @@ class Recorder:
             orig = getattr(self.ck, name)
             self.saved[name] = orig
             setattr(self.ck, name, self._wrap(name, orig))
+        from sindslam_tpu_torch.ops import flow as fl
+
+        self.fl, self.graphed = fl, fl._solve_range
+        fl._solve_range = fl._eager_range
         return self
 
     def __exit__(self, *exc):
         for name, orig in self.saved.items():
             setattr(self.ck, name, orig)
+        self.fl._solve_range = self.graphed
 
     def _wrap(self, name, orig):
         def rec(*args, **kw):
@@ -2551,7 +2560,13 @@ def phase_card_cpu(torch, dev, cfg, frames) -> None:
     K1 on frames 2-4's inputs equal to its plain version on the CPU and on
     the card bit for bit (K2-K4 too), and the masks and keypoints to phase
     4's bounds (the flow still parts by the float order of the resize
-    products and the card's scans: ROADMAP, not port faults)."""
+    products and the card's scans: ROADMAP, not port faults). The recorded
+    runs solve the flow's level ranges eagerly; the card's run as the
+    front-end makes it, the ranges replayed from CUDA graphs, is held to
+    the recorded card run bit for bit."""
+    from sindslam_tpu_torch.frontend import pipeline as fp
+    from sindslam_tpu_torch.ops import image as im
+
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import torch_probe_card_cpu as probe
 
@@ -2565,6 +2580,17 @@ def phase_card_cpu(torch, dev, cfg, frames) -> None:
             torch.device("cpu"), "host")
     finally:
         rec.close()
+    st = fp.init_state(cfg, im.rgb_to_gray(torch.from_numpy(
+        frames[0][0]).to(dev)), device=dev)
+    for i, (rgb, depth, *_rest) in enumerate(
+            frames[:CARD_CPU_FRAMES[-1] + 1]):
+        out, st = fp.frontend_step(rgb, depth, st, cfg)
+        apart = [n for (n, a), (_n, b) in zip(
+                     probe.leaves(torch, out), probe.leaves(torch, outs_g[i]))
+                 if not torch.equal(a.cpu(), b)]
+        check(not apart and out.large_motion == outs_g[i].large_motion,
+              f"frame {i}: the card's front-end with the flow's CUDA graphs "
+              f"parts from its eager run at {apart}")
     _first, rows = probe.compare_frontends(
         torch, frames, cfg, outs_g, outs_c, st_g, st_c,
         frame_ids=CARD_CPU_FRAMES)
@@ -3164,6 +3190,7 @@ def main() -> int:
     n_prof = 5
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    ck.reset_launch_counts()
     with torch.profiler.profile(activities=acts) as prof:
         t1 = time.perf_counter()
         st = st_after_warmup
@@ -3195,6 +3222,17 @@ def main() -> int:
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  {t / 1e3 / n_prof:8.3f} ms/frame {c / n_prof:7.1f} "
               f"calls/frame  {name[:80]}")
+    # K1's counter, which a replay of the flow's CUDA graphs adds to from
+    # its capture, against the K1 launches the trace saw
+    k1_traced = sum(c for name, (_t, c) in by_name.items()
+                    if "sor_tile_kernel" in name)
+    k1_counted = sum(n for _c, n in ck.SOR_INNER_CUDA_LAUNCHES.values())
+    print(f"  sor_inner: {k1_traced} sor_tile_kernel launches in the trace, "
+          f"{k1_counted} counted ({ck.LAUNCHES['sor_inner']} calls)",
+          flush=True)
+    check(k1_traced == k1_counted > 0,
+          f"sor_inner: the trace shows {k1_traced} sor_tile_kernel launches "
+          f"in {n_prof} frames, the counter {k1_counted}")
     t_h2d, n_h2d = 0.0, 0
     for name, (t, c) in by_name.items():
         if "memcpy" in name.lower() and "htod" in name.lower():
@@ -3583,6 +3621,12 @@ def main() -> int:
     lap("phase 17, the multi-device paths")
     phase_bench(torch, ck)
     lap("phase 18, bench_torch on the card")
+    from sindslam_tpu_torch.ops import flow as fl
+    print(f"the flow's CUDA graphs at the end: {len(fl._GRAPHS)} graphs in "
+          f"{len(fl._POOLS)} pools; device memory reserved "
+          f"{torch.cuda.memory_reserved()} B, allocated "
+          f"{torch.cuda.memory_allocated()} B, peak allocated "
+          f"{torch.cuda.max_memory_allocated()} B", flush=True)
 
     def entry(name):
         r = results[name]

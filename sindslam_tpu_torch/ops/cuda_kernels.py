@@ -61,6 +61,28 @@ def reset_launch_counts() -> None:
     CC_LABELS_CUDA_LAUNCHES.clear()
 
 
+def launch_counts() -> tuple:
+    """A copy of the launch counters, for ``add_launch_counts``."""
+    return (dict(LAUNCHES),
+            {k: list(v) for k, v in SOR_INNER_CUDA_LAUNCHES.items()},
+            {k: list(v) for k, v in CC_LABELS_CUDA_LAUNCHES.items()})
+
+
+def add_launch_counts(counts: tuple) -> None:
+    """Add a copy from ``launch_counts`` to the counters (a CUDA graph's
+    replay adds what its capture counted, as the same calls made eagerly
+    would)."""
+    launches, *per_shape = counts
+    for name, n in launches.items():
+        LAUNCHES[name] += n
+    for live, add in zip((SOR_INNER_CUDA_LAUNCHES, CC_LABELS_CUDA_LAUNCHES),
+                         per_shape):
+        for key, (calls, cuda) in add.items():
+            c = live.setdefault(key, [0, 0])
+            c[0] += calls
+            c[1] += cuda
+
+
 def _on_cpu(*tensors: torch.Tensor) -> bool:
     devs = {t.device for t in tensors}
     if len(devs) != 1:

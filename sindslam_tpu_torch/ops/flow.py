@@ -4,7 +4,10 @@ Port of ``sindslam_tpu/ops/flow.py``: a coarse-to-fine pyramid; per level,
 outer iterations warp the target by the current flow and linearize, and the
 inner solve (lagged psi' re-weighting + red-black SOR) runs in kernel K1
 (``cuda_kernels.sor_inner``). One path: the kernel on CUDA, its plain
-version on the CPU; the warp is the gather form everywhere.
+version on the CPU; the warp is the gather form everywhere. On CUDA the
+front-end's level ranges are CUDA graphs of the same calls
+(``_solve_range``): the host launches a range at once instead of its
+hundreds of small operations one by one.
 
 Every function also takes (B, H, W) stacks of lanes: each level then
 makes one K1 call for all the lanes, and lane b is computed exactly as the
@@ -109,6 +112,126 @@ def _solve_pyramid_range(pyr1: Sequence[torch.Tensor],
     return u, v
 
 
+def _eager_range(pyr_cur: Sequence[torch.Tensor],
+                 pyr_tgt: Sequence[torch.Tensor], uv, cfg: FlowConfig,
+                 start: int, end: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_solve_pyramid_range`` over levels ``start..end`` from the flow
+    ``uv`` (``None``: zero at level ``start``), call by call."""
+    if uv is None:
+        level = pyr_cur[start]
+        u0 = torch.zeros(level.shape, dtype=torch.float32,
+                         device=level.device)
+        uv = (u0, torch.zeros_like(u0))
+    return _solve_pyramid_range(pyr_cur, pyr_tgt, *uv, cfg, start, end)
+
+
+class _RangeGraph:
+    """``_eager_range`` over levels ``start..end`` as one CUDA graph: static
+    input buffers (the range's current and target levels, and the flow it
+    starts from unless that is zero), the captured solve and its outputs,
+    and the kernel wrapper calls one replay makes.
+
+    ``first`` solves the range on a side stream from the caller's inputs
+    (first-use uploads, cuBLAS's workspace on that stream), and returns
+    that flow; its kernel calls count as they launch. Then it captures the
+    same solve there, which launches nothing and counts nothing: each
+    replay adds to ``cuda_kernels``' counters what the capture's calls
+    counted, as the same calls made eagerly add it. No host
+    synchronisation."""
+
+    def __init__(self, pyr_cur, pyr_tgt, uv, cfg: FlowConfig, start: int,
+                 end: int):
+        self.cfg, self.start, self.end = cfg, start, end
+        levels = range(end, start + 1)
+        self.cur = [p.clone() if i in levels else None
+                    for i, p in enumerate(pyr_cur)]
+        self.tgt = [p.clone() if i in levels else None
+                    for i, p in enumerate(pyr_tgt)]
+        self.uv = None if uv is None else tuple(t.clone() for t in uv)
+        self.graph = torch.cuda.CUDAGraph()
+
+    def _solve(self):
+        return _eager_range(self.cur, self.tgt, self.uv, self.cfg,
+                            self.start, self.end)
+
+    def first(self, pool, stream: torch.cuda.Stream):
+        main = torch.cuda.current_stream()
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            out = self._solve()
+            counts = ck.launch_counts()
+            ck.reset_launch_counts()
+            try:
+                self.graph.capture_begin(pool,
+                                         capture_error_mode="thread_local")
+                try:
+                    self.out = self._solve()
+                finally:
+                    self.graph.capture_end()
+                self.launches = ck.launch_counts()
+            finally:
+                ck.reset_launch_counts()
+                ck.add_launch_counts(counts)
+        main.wait_stream(stream)
+        for t in out:
+            t.record_stream(main)
+        return out
+
+    def replay(self, pyr_cur, pyr_tgt, uv):
+        for i in range(self.end, self.start + 1):
+            self.cur[i].copy_(pyr_cur[i])
+            self.tgt[i].copy_(pyr_tgt[i])
+        for static, t in zip(self.uv or (), uv or ()):
+            static.copy_(t)
+        self.graph.replay()
+        ck.add_launch_counts(self.launches)
+        # the finest level's flow leaves the caller: its own copy
+        return (tuple(t.clone() for t in self.out) if self.end == 0
+                else self.out)
+
+
+# a key's graphs (see ``_solve_range``), the memory pool they share, and
+# the side stream each device captures on
+_GRAPHS: dict = {}
+_POOLS: dict = {}
+_STREAMS: dict = {}
+
+
+def _solve_range(pyr_cur: Sequence[torch.Tensor],
+                 pyr_tgt: Sequence[torch.Tensor], uv, cfg: FlowConfig,
+                 start: int, end: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_eager_range``, on CUDA through the range's CUDA graph: the first
+    call with a key solves eagerly and captures the graph, every later call
+    replays it. The key: the levels' shapes (with the lane axis), ``cfg``,
+    the device, the float32 product precision and the deterministic-
+    algorithms setting the capture ran under, the range and whether it
+    starts from zero. The graphs of one pyramid key share a memory pool. A
+    replayed range that ends above the finest level returns the graph's own
+    outputs, valid until the key's next replay; one that ends at the finest
+    level returns copies. On the CPU, and inside another capture, the
+    eager solve."""
+    profiling.flow_range_solves += 1
+    dev = pyr_cur[start].device
+    if dev.type != "cuda" or torch.cuda.is_current_stream_capturing():
+        return _eager_range(pyr_cur, pyr_tgt, uv, cfg, start, end)
+    pyramid = (tuple(tuple(p.shape) for p in pyr_cur), cfg, dev,
+               torch.get_float32_matmul_precision(),
+               torch.are_deterministic_algorithms_enabled())
+    key = (*pyramid, start, end, uv is None)
+    with torch.cuda.device(dev):
+        graph = _GRAPHS.get(key)
+        if graph is None:
+            if pyramid not in _POOLS:
+                _POOLS[pyramid] = torch.cuda.graph_pool_handle()
+            if dev not in _STREAMS:
+                _STREAMS[dev] = torch.cuda.Stream(dev)
+            graph = _GRAPHS[key] = _RangeGraph(pyr_cur, pyr_tgt, uv, cfg,
+                                               start, end)
+            return graph.first(_POOLS[pyramid], _STREAMS[dev])
+        profiling.flow_graph_replays += 1
+        return graph.replay(pyr_cur, pyr_tgt, uv)
+
+
 def variational_flow(img1_gray: torch.Tensor, img2_gray: torch.Tensor,
                      cfg: FlowConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense flow img1 -> img2 on (H, W) grayscale in [0, 255], or on each
@@ -175,16 +298,21 @@ def flow_fallback_from_pyramids(
     read is the count of lanes that flipped: with none the restart is not
     run, with all the continuation is not.
 
+    On CUDA the level ranges (the pre-solve, the continuation, and the
+    restart as those two ranges again) replay CUDA graphs
+    (``_solve_range``); the decision's host reads sit between them.
+
     Its parts are named ranges (``flow/presolve``, ``flow/decide``,
-    ``flow/finish``, ``flow/restart``, ``flow/photo``), and
-    ``profiling.flow_restarts`` counts the calls that ran the restart.
+    ``flow/finish``, ``flow/restart``, ``flow/photo``);
+    ``profiling.flow_restarts`` counts the calls that ran the restart,
+    ``profiling.flow_range_solves`` the ranges solved and
+    ``profiling.flow_graph_replays`` those a graph's replay served.
     """
     H, W = out_hw
     shapes = [tuple(p.shape[-2:]) for p in pyr_cur]
     wh, ww = shapes[0]
     top = len(shapes) - 1
     k = min(max(cfg.fallback_pretest_level, 0), top)
-    dev = pyr_cur[0].device
     lanes = isinstance(prev_large, torch.Tensor) and prev_large.dim() == 1
     if not lanes:
         prev_large = bool(prev_large)
@@ -192,11 +320,7 @@ def flow_fallback_from_pyramids(
     with span("flow/presolve"):
         pyr_t1 = tuple(_pick(prev_large, a, b)
                        for a, b in zip(pyr_m1, pyr_m2))
-        ch, cw = shapes[-1]
-        u0 = torch.zeros((*pyr_cur[0].shape[:-2], ch, cw),
-                         dtype=torch.float32, device=dev)
-        v0 = torch.zeros_like(u0)
-        u_c, v_c = _solve_pyramid_range(pyr_cur, pyr_t1, u0, v0, cfg, top, k)
+        u_c, v_c = _solve_range(pyr_cur, pyr_t1, None, cfg, top, k)
 
     with span("flow/decide"):
         # magnitude test in full-resolution n->n-2-equivalent pixels
@@ -223,18 +347,20 @@ def flow_fallback_from_pyramids(
 
     def cont():
         with span("flow/finish"):
-            return (_solve_pyramid_range(pyr_cur, pyr_t1, u_c, v_c, cfg,
-                                         k - 1, 0)
+            return (_solve_range(pyr_cur, pyr_t1, (u_c, v_c), cfg, k - 1, 0)
                     if k > 0 else (u_c, v_c))
 
     def restart():
         # the decision flipped the prediction: full solve against the target
-        # the decision chose
+        # the decision chose, as the pre-solve's range and the
+        # continuation's
         profiling.flow_restarts += 1
         with span("flow/restart"):
             pyr_t2 = tuple(_pick(large_motion, a, b)
                            for a, b in zip(pyr_m1, pyr_m2))
-            return _solve_pyramid_range(pyr_cur, pyr_t2, u0, v0, cfg, top, 0)
+            uv = _solve_range(pyr_cur, pyr_t2, None, cfg, top, k)
+            return _solve_range(pyr_cur, pyr_t2, uv, cfg, k - 1, 0) \
+                if k > 0 else uv
 
     if lanes:
         if n_flip == 0:

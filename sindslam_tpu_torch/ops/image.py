@@ -178,10 +178,12 @@ def _resize_weights_np(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[None, :], weights, f32(0)).astype(f32)
 
 
-@functools.lru_cache(maxsize=256)
+@functools.lru_cache(maxsize=None)
 def _resize_weights(n_in: int, n_out: int, device: torch.device
                     ) -> torch.Tensor:
-    """The weight matrix as a tensor, uploaded once per shape and device."""
+    """The weight matrix as a tensor, uploaded once per shape and device
+    and never evicted: a CUDA graph captured over a resize (the flow's
+    level ranges) reads it by address at every replay."""
     return torch.from_numpy(_resize_weights_np(n_in, n_out)).to(device)
 
 

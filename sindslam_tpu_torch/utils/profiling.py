@@ -5,8 +5,9 @@ The reference instruments every DynaDetect stage with ``cv::getTickCount``
 and prints running means per frame (``src/DynaDetect.cc:1384,1643-1649``,
 the example program's timers ``rgbd_tum_noros.cc:198-209``). This module keeps that CLI
 feature: named stage timers with running statistics. It also holds the
-program's named ranges (``span``) and an always-on host counter of the
-front-end's flow restarts, which a profiler run or a benchmark reads.
+program's named ranges (``span``) and always-on host counters of the
+front-end's flow (its restarts, its level ranges and their CUDA graph
+replays), which a profiler run or a benchmark reads.
 """
 
 from __future__ import annotations
@@ -63,6 +64,11 @@ _OFF = contextlib.nullcontext()
 # integer, counted where the decision is already on the host, never reset
 # by the program
 flow_restarts = 0
+# the level ranges that function solved (the pre-solve, the continuation,
+# the restart's two), and those of them a CUDA graph's replay served: host
+# integers over the process, as ``flow_restarts``
+flow_range_solves = 0
+flow_graph_replays = 0
 
 
 def span(name: str):

@@ -29,6 +29,9 @@ against the CPU by ``chip_smoke.py``'s loop checks: ``ransac_rigid`` with the
 same draws gives the same inlier mask, it and its IRLS refinement
 transforms within 1e-4 (tangent norm), and ``optimize_pose_graph`` poses
 within 1e-4 plus the CPU's own float32 distance from a float64 solve.
+The flow's level ranges from CUDA graphs against ``_solve_pyramid_range``
+called directly: equal flow bit for bit over three steps kept to the end,
+in both forms, continuing and restarting, with equal K1 counts.
 The modes of slices 6-7 by ``chip_smoke.py``'s checks of phases 13-15:
 ``keyframe_to_voxels`` with every field equal and at most 1 % of the valid
 records in a voxel 1 off on an axis, the Sim(3) RANSAC and pose graph as
@@ -37,11 +40,13 @@ mask and R, t within 1e-4, ``stereo_match`` with equal matches and depths
 within 1e-5 relative.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
-from sindslam_tpu_torch.config import CameraConfig
+from sindslam_tpu_torch.config import CameraConfig, SystemConfig
 from sindslam_tpu_torch.geometry import se3 as t_se3
 from sindslam_tpu_torch.ops import cuda_kernels as ck
 from sindslam_tpu_torch.slam.pose_graph import PoseGraph
@@ -631,3 +636,135 @@ def test_batched_kernels_match_plain_lane_by_lane(cuda_device, lanes):
     k = 16 if lanes == 1 else 8      # 80 tiles, or 3 x 35 at a halo of 8
     assert ck.CC_LABELS_CUDA_LAUNCHES == {(lanes, 240, 320, 768):
                                           [1, 768 // k]}
+
+
+@functools.lru_cache(maxsize=1)
+def _walk_frames():
+    """Six 640x480 ``dyn_walk`` frames (rgb, depth) as tensors."""
+    from sindslam_tpu_torch.datasets.synthetic import make_benchmark_sequence
+    frames, _ = make_benchmark_sequence("dyn_walk", n_frames=6, seed=0)
+    return [(torch.from_numpy(f[0]), torch.from_numpy(f[1])) for f in frames]
+
+
+def _flow_steps(dev, cfg, lanes: int, prevs):
+    """``flow_fallback_from_pyramids`` over consecutive steps, as the
+    front-end makes them: step s on frame n = s + 2 (lane b of a stack on
+    n = 2 + (s + b) % 4) against n - 1 and n - 2, from the raw flow the
+    step before returned, predicting ``prevs[s]``. Every step's pyramids
+    (n, n - 1, n - 2) and outputs, kept."""
+    from sindslam_tpu_torch.ops import flow as fl
+    from sindslam_tpu_torch.ops import image as im
+
+    frames = _walk_frames()
+    pyr = [fl.working_pyramid(im.rgb_to_gray(rgb.to(dev)), cfg.flow)
+           for rgb, _d in frames]
+    valid = [(d.to(dev) > 0.05) & (d.to(dev) <= cfg.dyna.max_depth_m)
+             for _r, d in frames]
+
+    def at(seq, s, back):
+        if not lanes:
+            return seq[s + 2 - back]
+        picks = [seq[2 + (s + b) % 4 - back] for b in range(lanes)]
+        if isinstance(picks[0], torch.Tensor):
+            return torch.stack(picks)
+        return [torch.stack(levels) for levels in zip(*picks)]
+
+    wh, ww = cfg.flow.working_height, cfg.flow.working_width
+    zero = torch.zeros((lanes, wh, ww) if lanes else (wh, ww), device=dev)
+    flow_w, steps = (zero, zero), []
+    for s, prev in enumerate(prevs):
+        pyrs = tuple(at(pyr, s, back) for back in range(3))
+        out = fl.flow_fallback_from_pyramids(
+            *pyrs, at(valid, s, 0), prev, cfg.flow,
+            cfg.dyna.large_motion_flow_px, cfg.dyna.large_motion_frac,
+            (cfg.camera.height, cfg.camera.width), prev_flow_w=flow_w,
+            compose_max_flow_px=cfg.dyna.compose_max_flow_px)
+        flow_w = out[4][:2]
+        steps.append((pyrs, out))
+    return steps
+
+
+def _solved_flow(fc, pyr_cur, pyr_m1, pyr_m2, prev, large):
+    """A step's flow through ``_solve_pyramid_range`` alone: the pre-solve
+    against the predicted target; unless every lane flipped, its
+    continuation; if some lane flipped, the whole pyramid from zero against
+    the target the decision chose; each lane keeps the solve its regime
+    selects."""
+    from sindslam_tpu_torch.ops import flow as fl
+
+    top = len(pyr_cur) - 1
+    k = min(max(fc.fallback_pretest_level, 0), top)
+    zero = torch.zeros_like(pyr_cur[top])
+    t1 = [fl._pick(prev, a, b) for a, b in zip(pyr_m1, pyr_m2)]
+    u, v = fl._solve_pyramid_range(pyr_cur, t1, zero, zero.clone(), fc,
+                                   top, k)
+    flip = torch.as_tensor(large != prev)
+    cont = restart = None
+    if not flip.all():
+        cont = fl._solve_pyramid_range(pyr_cur, t1, u, v, fc, k - 1, 0)
+    if flip.any():
+        t2 = [fl._pick(large, a, b) for a, b in zip(pyr_m1, pyr_m2)]
+        restart = fl._solve_pyramid_range(pyr_cur, t2, zero, zero.clone(),
+                                          fc, top, 0)
+    if cont is None or restart is None:
+        return cont or restart
+    return tuple(fl._pick(flip, r, c) for r, c in zip(restart, cont))
+
+
+def _ranges_solved(prevs, outs):
+    """The level ranges each step solved, from its prediction and verdict:
+    the pre-solve and the continuation (2), or where every lane flipped the
+    pre-solve and the restart's two (3), or all four where some did."""
+    n = []
+    for prev, out in zip(prevs, outs):
+        flip = torch.as_tensor(out[2] != prev).reshape(-1)
+        n.append(2 if not flip.any() else 3 if flip.all() else 4)
+    return n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [0, 4])
+def test_flow_graphs_equal_the_eager_solve(cuda_device, lanes, monkeypatch):
+    """The front-end's flow with its level ranges from CUDA graphs,
+    captured in this run (each range's first call solves eagerly and
+    captures, later calls replay), against ``_solve_pyramid_range`` called
+    directly on the same pyramids: the flow of three steps equal bit for
+    bit, compared only after the last step (an output that a graph's buffer
+    aliased would have changed), and K1's wrapper calls and CUDA launches by
+    shape equal. One lane continues and restarts; four lanes flip in
+    part."""
+    from sindslam_tpu_torch.ops import flow as fl
+    from sindslam_tpu_torch.utils import profiling
+
+    dev = cuda_device
+    cfg = SystemConfig()
+    if lanes:
+        prevs = [torch.tensor(p, device=dev) for p in
+                 ([False, True, False, True], [False] * 4, [True] * 4)]
+    else:
+        prevs = [False, True, False]
+    monkeypatch.setattr(fl, "_GRAPHS", {})
+    ck.reset_launch_counts()
+    before = (profiling.flow_range_solves, profiling.flow_graph_replays,
+              profiling.flow_restarts)
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    steps = _flow_steps(dev, cfg, lanes, prevs)
+    torch.cuda.synchronize()
+    print(f"flow graphs, {lanes} lanes: {len(fl._GRAPHS)} graphs, "
+          f"{torch.cuda.memory_reserved() - reserved} bytes more reserved")
+    counts = ck.launch_counts()
+    ranges = _ranges_solved(prevs, [out for _p, out in steps])
+    # the pre-solve's graph and the continuation's: a restart replays both
+    assert len(fl._GRAPHS) == 2
+    assert (profiling.flow_range_solves - before[0],
+            profiling.flow_graph_replays - before[1],
+            profiling.flow_restarts - before[2]) == (
+        sum(ranges), sum(ranges) - 2, sum(n > 2 for n in ranges))
+    assert ({2, 3} <= set(ranges)) if not lanes else (4 in ranges), ranges
+    assert counts[0]["sor_inner"] > 0
+    ck.reset_launch_counts()
+    for s, (((cur, m1, m2), out), prev) in enumerate(zip(steps, prevs)):
+        u, v = _solved_flow(cfg.flow, cur, m1, m2, prev, out[2])
+        assert torch.equal(out[4][0], u) and torch.equal(out[4][1], v), s
+    assert ck.launch_counts() == counts

@@ -10,12 +10,16 @@ motion decides n->n-2 whatever the prediction):
   off;
 - ``flow_restarts`` counts one a call whose flow restarted, in both
   forms, whether one lane or every lane restarted;
+- on the CPU no level range is a CUDA graph: ``flow_graph_replays`` stays
+  0, ``flow_range_solves`` counts the ranges solved, and the flow and K1
+  calls are those of the parent's solve in one piece;
 - importing the module starts no CUDA.
 """
 
 import os
 import subprocess
 import sys
+from collections import Counter
 
 import pytest
 import torch
@@ -23,6 +27,8 @@ import torch
 from sindslam_tpu_torch.datasets.synthetic import make_benchmark_sequence
 from sindslam_tpu_torch.evaluation.benchmark import scaled_system_config
 from sindslam_tpu_torch.frontend import pipeline as tp
+from sindslam_tpu_torch.ops import cuda_kernels as ck
+from sindslam_tpu_torch.ops import flow as fl
 from sindslam_tpu_torch.ops import image as im
 from sindslam_tpu_torch.utils import profiling
 
@@ -196,11 +202,68 @@ def test_flow_restarts_counts_the_calls_that_restart(frames):
     assert profiling.flow_restarts == before
 
 
+def _parent_flow(pyr_cur, pyr_m1, pyr_m2, prev, large):
+    """The parent's flow, each level range through ``_solve_pyramid_range``
+    eagerly: the pre-solve against the predicted target; unless every lane
+    flipped, its continuation; if some lane flipped, the whole pyramid from
+    zero against the target the decision chose; each lane keeps the solve
+    its regime selects."""
+    fc = CFG.flow
+    top = len(pyr_cur) - 1
+    k = min(max(fc.fallback_pretest_level, 0), top)
+    t1 = [fl._pick(prev, a, b) for a, b in zip(pyr_m1, pyr_m2)]
+    zero = torch.zeros(pyr_cur[top].shape)
+    u, v = fl._solve_pyramid_range(pyr_cur, t1, zero, zero, fc, top, k)
+    flip = torch.as_tensor(large != prev)
+    cont = restart = None
+    if not flip.all():
+        cont = fl._solve_pyramid_range(pyr_cur, t1, u, v, fc, k - 1, 0)
+    if flip.any():
+        t2 = [fl._pick(large, a, b) for a, b in zip(pyr_m1, pyr_m2)]
+        restart = fl._solve_pyramid_range(pyr_cur, t2, zero, zero, fc, top, 0)
+    if cont is None or restart is None:
+        return cont or restart
+    return tuple(fl._pick(flip, r, c) for r, c in zip(restart, cont))
+
+
+# the level ranges a step solves: the pre-solve and the continuation; the
+# pre-solve and the restart's two; at a step where one of two lanes
+# flipped, all four
+@pytest.mark.parametrize("form,ranges", [("continue", 2), ("restart", 3),
+                                         ("lanes", 4)])
+def test_the_cpu_solves_every_level_range_eagerly(frames, form, ranges,
+                                                  monkeypatch):
+    lanes = 2 if form == "lanes" else 0
+    prev = torch.tensor([False, True]) if lanes else form == "restart"
+    state = _state(frames, lanes)._replace(prev_large=prev)
+    calls = Counter()
+    sor_inner = ck.sor_inner
+
+    def counted(ix, *args, **kw):
+        calls[tuple(ix.shape)] += 1
+        return sor_inner(ix, *args, **kw)
+
+    monkeypatch.setattr(ck, "sor_inner", counted)
+    solves, replays = profiling.flow_range_solves, profiling.flow_graph_replays
+    rgb, depth = _frame(frames, 1, lanes)
+    out, nxt = tp.frontend_step(rgb, depth, state, CFG)
+    assert profiling.flow_graph_replays == replays
+    assert profiling.flow_range_solves == solves + ranges
+    step_calls = dict(calls)
+    calls.clear()
+    pyr_cur = fl.working_pyramid(im.rgb_to_gray(rgb), CFG.flow)
+    u, v = _parent_flow(pyr_cur, state.pyr_m1, state.pyr_m2, prev,
+                        out.large_motion)
+    assert torch.equal(nxt.flow_u_w, u) and torch.equal(nxt.flow_v_w, v)
+    assert step_calls == dict(calls)
+
+
 def test_importing_profiling_starts_no_cuda():
     code = ("import torch, sindslam_tpu_torch.utils.profiling as p; "
             "p.span('a/b'); assert not torch.cuda.is_initialized(); "
-            "print(p.flow_restarts)")
+            "print(p.flow_restarts, p.flow_range_solves, "
+            "p.flow_graph_replays)")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.split() == ["0"]
+    assert res.stdout.split() == ["0", "0", "0"]

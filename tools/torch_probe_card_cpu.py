@@ -31,12 +31,15 @@ trajectories and their ATE. Needs a CUDA device. It prints no device time: the
 seconds each draw mode took are command time, every ATE is a SLAM accuracy.
 ``--deterministic`` runs everything under
 ``torch.use_deterministic_algorithms(True, warn_only=True)`` (phase 12's
-mode; phase 11 runs without it).
+mode; phase 11 runs without it). The recorded runs solve the flow's level
+ranges eagerly (``eager_flow``): on the card a CUDA graph's replay calls
+none of the wrappers they record.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import subprocess
 import sys
@@ -167,6 +170,21 @@ class Recorder:
         return out
 
 
+@contextlib.contextmanager
+def eager_flow():
+    """The flow's level ranges solved call by call (``ops/flow.py``'s
+    ``_eager_range`` in ``_solve_range``'s place), with the kernels and
+    arguments a CUDA graph's replay would launch."""
+    from sindslam_tpu_torch.ops import flow as fl
+
+    graphed = fl._solve_range
+    fl._solve_range = fl._eager_range
+    try:
+        yield
+    finally:
+        fl._solve_range = graphed
+
+
 def run_frontend(torch, rec, frames, cfg, dev, draws: str):
     """``frontend_step`` over ``frames`` on ``dev``; returns the outputs
     (on the CPU) and the stage, kernel and image-operation calls recorded
@@ -182,10 +200,11 @@ def run_frontend(torch, rec, frames, cfg, dev, draws: str):
         st = st._replace(generator=gen)
     outs = []
     rec.on = True
-    for i, (rgb, depth, _gt, _pose, _ts) in enumerate(frames):
-        rec.frame = i
-        out, st = fp.frontend_step(rgb, depth, st, cfg)
-        outs.append(to_dev(torch, out, torch.device("cpu")))
+    with eager_flow():
+        for i, (rgb, depth, _gt, _pose, _ts) in enumerate(frames):
+            rec.frame = i
+            out, st = fp.frontend_step(rgb, depth, st, cfg)
+            outs.append(to_dev(torch, out, torch.device("cpu")))
     rec.on = False
     return (outs,) + rec.take()
 
