@@ -437,9 +437,10 @@ class Recorder:
     """Wraps the kernel wrappers of ``cuda_kernels`` and keeps, per kernel
     and call signature (K1: per level shape, K2: per sweep budget), the
     inputs of the last of the largest non-trivial calls the main path
-    made. The flow's level ranges run call by call meanwhile
-    (``ops/flow.py``'s ``_eager_range`` in ``_solve_range``'s place): a
-    CUDA graph's replay calls no wrapper."""
+    made. The flow's level ranges and the geometry branch run call by call
+    meanwhile (``ops/flow.py``'s ``_eager_range`` in ``_solve_range``'s
+    place, ``frontend/pipeline.py``'s ``_eager_geometry`` in
+    ``_geometry``'s): a CUDA graph's replay calls no wrapper."""
 
     def __init__(self, torch, ck):
         self.torch, self.ck = torch, ck
@@ -451,16 +452,20 @@ class Recorder:
             orig = getattr(self.ck, name)
             self.saved[name] = orig
             setattr(self.ck, name, self._wrap(name, orig))
+        from sindslam_tpu_torch.frontend import pipeline as fp
         from sindslam_tpu_torch.ops import flow as fl
 
-        self.fl, self.graphed = fl, fl._solve_range
+        self.graphed = ((fl, "_solve_range", fl._solve_range),
+                        (fp, "_geometry", fp._geometry))
         fl._solve_range = fl._eager_range
+        fp._geometry = fp._eager_geometry
         return self
 
     def __exit__(self, *exc):
         for name, orig in self.saved.items():
             setattr(self.ck, name, orig)
-        self.fl._solve_range = self.graphed
+        for mod, name, graphed in self.graphed:
+            setattr(mod, name, graphed)
 
     def _wrap(self, name, orig):
         def rec(*args, **kw):
@@ -2561,9 +2566,10 @@ def phase_card_cpu(torch, dev, cfg, frames) -> None:
     the card bit for bit (K2-K4 too), and the masks and keypoints to phase
     4's bounds (the flow still parts by the float order of the resize
     products and the card's scans: ROADMAP, not port faults). The recorded
-    runs solve the flow's level ranges eagerly; the card's run as the
-    front-end makes it, the ranges replayed from CUDA graphs, is held to
-    the recorded card run bit for bit."""
+    runs solve the flow's level ranges and the geometry branch eagerly;
+    the card's run as the front-end makes it, the ranges and the branch
+    replayed from CUDA graphs, is held to the recorded card run bit for
+    bit."""
     from sindslam_tpu_torch.frontend import pipeline as fp
     from sindslam_tpu_torch.ops import image as im
 
@@ -2589,7 +2595,7 @@ def phase_card_cpu(torch, dev, cfg, frames) -> None:
                      probe.leaves(torch, out), probe.leaves(torch, outs_g[i]))
                  if not torch.equal(a.cpu(), b)]
         check(not apart and out.large_motion == outs_g[i].large_motion,
-              f"frame {i}: the card's front-end with the flow's CUDA graphs "
+              f"frame {i}: the card's front-end with its CUDA graphs "
               f"parts from its eager run at {apart}")
     _first, rows = probe.compare_frontends(
         torch, frames, cfg, outs_g, outs_c, st_g, st_c,
@@ -3233,6 +3239,17 @@ def main() -> int:
     check(k1_traced == k1_counted > 0,
           f"sor_inner: the trace shows {k1_traced} sor_tile_kernel launches "
           f"in {n_prof} frames, the counter {k1_counted}")
+    # K2's counter, which a replay of the geometry branch's CUDA graph adds
+    # to from its capture, against the K2 launches the trace saw
+    k2_traced = sum(c for name, (_t, c) in by_name.items()
+                    if "cc_tile_kernel" in name)
+    k2_counted = sum(n for _c, n in ck.CC_LABELS_CUDA_LAUNCHES.values())
+    print(f"  cc_labels: {k2_traced} cc_tile_kernel launches in the trace, "
+          f"{k2_counted} counted ({ck.LAUNCHES['cc_labels']} calls)",
+          flush=True)
+    check(k2_traced == k2_counted > 0,
+          f"cc_labels: the trace shows {k2_traced} cc_tile_kernel launches "
+          f"in {n_prof} frames, the counter {k2_counted}")
     t_h2d, n_h2d = 0.0, 0
     for name, (t, c) in by_name.items():
         if "memcpy" in name.lower() and "htod" in name.lower():
@@ -3621,9 +3638,11 @@ def main() -> int:
     lap("phase 17, the multi-device paths")
     phase_bench(torch, ck)
     lap("phase 18, bench_torch on the card")
+    from sindslam_tpu_torch.ops import _graphs
     from sindslam_tpu_torch.ops import flow as fl
-    print(f"the flow's CUDA graphs at the end: {len(fl._GRAPHS)} graphs in "
-          f"{len(fl._POOLS)} pools; device memory reserved "
+    print(f"the CUDA graphs at the end: {len(fl._GRAPHS)} of the flow and "
+          f"{len(fp._GRAPHS)} of the geometry branch in "
+          f"{len(_graphs._POOLS)} pools; device memory reserved "
           f"{torch.cuda.memory_reserved()} B, allocated "
           f"{torch.cuda.memory_allocated()} B, peak allocated "
           f"{torch.cuda.max_memory_allocated()} B", flush=True)

@@ -17,6 +17,10 @@ steps every lane in one call, as the reference's ``vmap`` of its
 ``frontend_step``: each of K1-K4 is launched for all the lanes, each lane
 keeps its own large-motion regime on the device, and lane b equals the
 single-frame step on lane b's frames alone.
+
+On CUDA the geometry branch (k-means, edges, RAG merge) of a step runs as
+one CUDA graph (``_geometry``), as the flow's level ranges do; the single
+stream and the lane form each have a graph of their own.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import numpy as np
 import torch
 
 from sindslam_tpu_torch import resolve_device
-from sindslam_tpu_torch.config import SystemConfig
+from sindslam_tpu_torch.config import CameraConfig, DynaConfig, SystemConfig
 from sindslam_tpu_torch.frontend.clustering import seg_by_kmeans
 from sindslam_tpu_torch.frontend.edges import cal_occluded
 from sindslam_tpu_torch.frontend.flow_mask import (flow_residual_mask,
@@ -35,11 +39,13 @@ from sindslam_tpu_torch.frontend.flow_mask import (flow_residual_mask,
                                                    sample_weights)
 from sindslam_tpu_torch.frontend.fusion import fuse_masks
 from sindslam_tpu_torch.frontend.orb import OrbFeatures, extract_orb
-from sindslam_tpu_torch.frontend.rag_merge import rag_merge
+from sindslam_tpu_torch.frontend.rag_merge import RagResult, rag_merge
+from sindslam_tpu_torch.ops import _graphs
 from sindslam_tpu_torch.ops import flow as flow_ops
 from sindslam_tpu_torch.ops import image as im
 from sindslam_tpu_torch.ops.homography import gumbel_draws
 from sindslam_tpu_torch.slam.frame import _depth_ur
+from sindslam_tpu_torch.utils import profiling
 from sindslam_tpu_torch.utils.profiling import span
 
 
@@ -145,6 +151,55 @@ def _draws(state: FrontendState, cfg: SystemConfig, dev, jitter, gumbel
             _upload(torch.stack(gs) if gumbel is None else gumbel, dev))
 
 
+def _eager_geometry(depth_m: torch.Tensor, prev_labels, cam: CameraConfig,
+                    dyna: DynaConfig) -> Tuple[torch.Tensor, RagResult]:
+    """The geometry branch, stage by stage: k-means warm-started from
+    ``prev_labels`` (``None``: the spatial grid), the occlusion edges and
+    the RAG merge of the clusters along them. Returns the k-means labels
+    and the merge's result."""
+    with span("frontend/kmeans"):
+        kml, _centers = seg_by_kmeans(depth_m, cam, dyna, prev_labels)
+    with span("frontend/edges"):
+        er = cal_occluded(depth_m, cam, dyna)
+    with span("frontend/rag_merge"):
+        rr = rag_merge(kml, er.occluded1, er.occluded2, er.total_area,
+                       depth_m, dyna)
+    return kml, rr
+
+
+# each key's geometry graph (see ``_geometry``)
+_GRAPHS: dict = {}
+
+
+def _geometry(depth_m: torch.Tensor, prev_labels, cam: CameraConfig,
+              dyna: DynaConfig) -> Tuple[torch.Tensor, RagResult]:
+    """``_eager_geometry``, on CUDA as one CUDA graph (``_graphs.solve``):
+    the first call with a key runs it eagerly and captures the graph,
+    every later call copies the depth and ``prev_labels`` into the graph's
+    inputs and replays it. The key: the depth's shape (with the lane
+    axis), whether ``prev_labels`` is given, ``cam``, ``dyna`` and what
+    the capture ran under; its graph has a memory pool of its own. A
+    replay returns copies of the k-means labels and of the merge's
+    ``label_img``, which outlive the step as the next state and the
+    output; the merge's other fields are the graph's own, valid until the
+    key's next replay. On the CPU, and inside another capture, the eager
+    branch."""
+    profiling.geometry_solves += 1
+    if not _graphs.replayable(depth_m.device):
+        return _eager_geometry(depth_m, prev_labels, cam, dyna)
+
+    def solve(depth, *prev):
+        return _eager_geometry(depth, prev[0] if prev else None, cam, dyna)
+
+    key = (tuple(depth_m.shape), prev_labels is None, cam, dyna)
+    inputs = (depth_m,) if prev_labels is None else (depth_m, prev_labels)
+    (kml, rr), replayed = _graphs.solve(_GRAPHS, key, key, solve, inputs)
+    if not replayed:
+        return kml, rr
+    profiling.geometry_graph_replays += 1
+    return kml.clone(), rr._replace(label_img=rr.label_img.clone())
+
+
 def frontend_step(rgb, depth_m, state: FrontendState, cfg: SystemConfig,
                   jitter: torch.Tensor | None = None,
                   gumbel: torch.Tensor | None = None
@@ -158,7 +213,9 @@ def frontend_step(rgb, depth_m, state: FrontendState, cfg: SystemConfig,
     replace the state generator's when given.
 
     The draws and each stage are named ranges (``frontend/*``, through
-    ``profiling.span``)."""
+    ``profiling.span``). The geometry branch (k-means, edges, RAG merge)
+    is one range, ``frontend/geometry``; on CUDA it replays a CUDA graph
+    (``_geometry``), elsewhere its stages are ranges inside it."""
     dev = state.prev_mask.device
     h, w = cfg.camera.height, cfg.camera.width
     rgb = _as_tensor(rgb, dev)
@@ -182,15 +239,8 @@ def frontend_step(rgb, depth_m, state: FrontendState, cfg: SystemConfig,
                 compose_max_flow_px=cfg.dyna.compose_max_flow_px)
         unreliable = photo_err > cfg.dyna.photo_err_max
 
-    # geometry branch
-    with span("frontend/kmeans"):
-        kml, _centers = seg_by_kmeans(depth_m, cfg.camera, cfg.dyna,
-                                      state.prev_labels)
-    with span("frontend/edges"):
-        er = cal_occluded(depth_m, cfg.camera, cfg.dyna)
-    with span("frontend/rag_merge"):
-        rr = rag_merge(kml, er.occluded1, er.occluded2, er.total_area,
-                       depth_m, cfg.dyna)
+    with span("frontend/geometry"):
+        kml, rr = _geometry(depth_m, state.prev_labels, cfg.camera, cfg.dyna)
 
     with span("frontend/flow_mask"):
         wmap = sample_weights(state.prev_mask, state.ratio_img, cfg.dyna,

@@ -57,7 +57,9 @@ def _compact_topk(comp: torch.Tensor, k: int, min_area: float
     flat = comp.reshape(*lead, -1).long()
     areas_all = im.segment_sum(torch.ones_like(flat, dtype=torch.float32),
                                flat, h * w + 1)
-    areas_all[..., 0] = 0.0
+    # the background's area: a fill on the device (a Python scalar set
+    # through indexing is an upload, which a CUDA graph cannot capture)
+    areas_all[..., 0].zero_()
     top_area, top_id = top_k_stable(areas_all, k)
     keep = top_area >= min_area
     rank = torch.full((*lead, h * w + 1), -1, dtype=torch.int32,

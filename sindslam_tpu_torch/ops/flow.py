@@ -23,6 +23,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from sindslam_tpu_torch.config import FlowConfig
+from sindslam_tpu_torch.ops import _graphs
 from sindslam_tpu_torch.ops import cuda_kernels as ck
 from sindslam_tpu_torch.ops import image as im
 from sindslam_tpu_torch.utils import profiling
@@ -125,111 +126,43 @@ def _eager_range(pyr_cur: Sequence[torch.Tensor],
     return _solve_pyramid_range(pyr_cur, pyr_tgt, *uv, cfg, start, end)
 
 
-class _RangeGraph:
-    """``_eager_range`` over levels ``start..end`` as one CUDA graph: static
-    input buffers (the range's current and target levels, and the flow it
-    starts from unless that is zero), the captured solve and its outputs,
-    and the kernel wrapper calls one replay makes.
-
-    ``first`` solves the range on a side stream from the caller's inputs
-    (first-use uploads, cuBLAS's workspace on that stream), and returns
-    that flow; its kernel calls count as they launch. Then it captures the
-    same solve there, which launches nothing and counts nothing: each
-    replay adds to ``cuda_kernels``' counters what the capture's calls
-    counted, as the same calls made eagerly add it. No host
-    synchronisation."""
-
-    def __init__(self, pyr_cur, pyr_tgt, uv, cfg: FlowConfig, start: int,
-                 end: int):
-        self.cfg, self.start, self.end = cfg, start, end
-        levels = range(end, start + 1)
-        self.cur = [p.clone() if i in levels else None
-                    for i, p in enumerate(pyr_cur)]
-        self.tgt = [p.clone() if i in levels else None
-                    for i, p in enumerate(pyr_tgt)]
-        self.uv = None if uv is None else tuple(t.clone() for t in uv)
-        self.graph = torch.cuda.CUDAGraph()
-
-    def _solve(self):
-        return _eager_range(self.cur, self.tgt, self.uv, self.cfg,
-                            self.start, self.end)
-
-    def first(self, pool, stream: torch.cuda.Stream):
-        main = torch.cuda.current_stream()
-        stream.wait_stream(main)
-        with torch.cuda.stream(stream):
-            out = self._solve()
-            counts = ck.launch_counts()
-            ck.reset_launch_counts()
-            try:
-                self.graph.capture_begin(pool,
-                                         capture_error_mode="thread_local")
-                try:
-                    self.out = self._solve()
-                finally:
-                    self.graph.capture_end()
-                self.launches = ck.launch_counts()
-            finally:
-                ck.reset_launch_counts()
-                ck.add_launch_counts(counts)
-        main.wait_stream(stream)
-        for t in out:
-            t.record_stream(main)
-        return out
-
-    def replay(self, pyr_cur, pyr_tgt, uv):
-        for i in range(self.end, self.start + 1):
-            self.cur[i].copy_(pyr_cur[i])
-            self.tgt[i].copy_(pyr_tgt[i])
-        for static, t in zip(self.uv or (), uv or ()):
-            static.copy_(t)
-        self.graph.replay()
-        ck.add_launch_counts(self.launches)
-        # the finest level's flow leaves the caller: its own copy
-        return (tuple(t.clone() for t in self.out) if self.end == 0
-                else self.out)
-
-
-# a key's graphs (see ``_solve_range``), the memory pool they share, and
-# the side stream each device captures on
+# each key's level-range graph (see ``_solve_range``)
 _GRAPHS: dict = {}
-_POOLS: dict = {}
-_STREAMS: dict = {}
 
 
 def _solve_range(pyr_cur: Sequence[torch.Tensor],
                  pyr_tgt: Sequence[torch.Tensor], uv, cfg: FlowConfig,
                  start: int, end: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``_eager_range``, on CUDA through the range's CUDA graph: the first
-    call with a key solves eagerly and captures the graph, every later call
-    replays it. The key: the levels' shapes (with the lane axis), ``cfg``,
-    the device, the float32 product precision and the deterministic-
-    algorithms setting the capture ran under, the range and whether it
-    starts from zero. The graphs of one pyramid key share a memory pool. A
-    replayed range that ends above the finest level returns the graph's own
-    outputs, valid until the key's next replay; one that ends at the finest
-    level returns copies. On the CPU, and inside another capture, the
-    eager solve."""
+    """``_eager_range``, on CUDA through the range's CUDA graph
+    (``_graphs.solve``): the first call with a key solves eagerly and
+    captures the graph, every later call copies the range's current and
+    target levels, and the flow it starts from unless that is zero, into
+    the graph's inputs and replays it. The key: the levels' shapes (with
+    the lane axis), ``cfg``, the range and whether it starts from zero,
+    and what the capture ran under. The graphs of one pyramid share a
+    memory pool. A replayed range that ends above the finest level returns
+    the graph's own outputs, valid until the key's next replay; one that
+    ends at the finest level returns copies. On the CPU, and inside
+    another capture, the eager solve."""
     profiling.flow_range_solves += 1
-    dev = pyr_cur[start].device
-    if dev.type != "cuda" or torch.cuda.is_current_stream_capturing():
+    if not _graphs.replayable(pyr_cur[start].device):
         return _eager_range(pyr_cur, pyr_tgt, uv, cfg, start, end)
-    pyramid = (tuple(tuple(p.shape) for p in pyr_cur), cfg, dev,
-               torch.get_float32_matmul_precision(),
-               torch.are_deterministic_algorithms_enabled())
-    key = (*pyramid, start, end, uv is None)
-    with torch.cuda.device(dev):
-        graph = _GRAPHS.get(key)
-        if graph is None:
-            if pyramid not in _POOLS:
-                _POOLS[pyramid] = torch.cuda.graph_pool_handle()
-            if dev not in _STREAMS:
-                _STREAMS[dev] = torch.cuda.Stream(dev)
-            graph = _GRAPHS[key] = _RangeGraph(pyr_cur, pyr_tgt, uv, cfg,
-                                               start, end)
-            return graph.first(_POOLS[pyramid], _STREAMS[dev])
-        profiling.flow_graph_replays += 1
-        return graph.replay(pyr_cur, pyr_tgt, uv)
+    n = start - end + 1
+
+    def solve(*t):
+        below = [None] * end
+        return _eager_range(below + list(t[:n]), below + list(t[n:2 * n]),
+                            t[2 * n:] or None, cfg, start, end)
+
+    pyramid = (tuple(tuple(p.shape) for p in pyr_cur), cfg)
+    inputs = (*pyr_cur[end:start + 1], *pyr_tgt[end:start + 1], *(uv or ()))
+    out, replayed = _graphs.solve(_GRAPHS, (*pyramid, start, end, uv is None),
+                                  pyramid, solve, inputs)
+    if not replayed:
+        return out
+    profiling.flow_graph_replays += 1
+    # the finest level's flow leaves the caller: its own copy
+    return tuple(t.clone() for t in out) if end == 0 else out
 
 
 def variational_flow(img1_gray: torch.Tensor, img2_gray: torch.Tensor,

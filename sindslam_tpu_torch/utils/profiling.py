@@ -7,7 +7,8 @@ the example program's timers ``rgbd_tum_noros.cc:198-209``). This module keeps t
 feature: named stage timers with running statistics. It also holds the
 program's named ranges (``span``) and always-on host counters of the
 front-end's flow (its restarts, its level ranges and their CUDA graph
-replays), which a profiler run or a benchmark reads.
+replays) and geometry branch (its runs and their replays), which a
+profiler run or a benchmark reads.
 """
 
 from __future__ import annotations
@@ -69,6 +70,10 @@ flow_restarts = 0
 # integers over the process, as ``flow_restarts``
 flow_range_solves = 0
 flow_graph_replays = 0
+# the front-end's geometry branch (k-means, edges, RAG merge): its runs,
+# graphed or not, and those a CUDA graph's replay served, as above
+geometry_solves = 0
+geometry_graph_replays = 0
 
 
 def span(name: str):

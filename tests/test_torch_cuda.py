@@ -31,7 +31,11 @@ transforms within 1e-4 (tangent norm), and ``optimize_pose_graph`` poses
 within 1e-4 plus the CPU's own float32 distance from a float64 solve.
 The flow's level ranges from CUDA graphs against ``_solve_pyramid_range``
 called directly: equal flow bit for bit over three steps kept to the end,
-in both forms, continuing and restarting, with equal K1 counts.
+in both forms, continuing and restarting, with equal K1 counts. The
+geometry branch (k-means, edges, RAG merge) from its CUDA graph against
+the eager branch over twelve steps, one lane and four: every output equal
+bit for bit, a step's outputs unchanged by the next replay, one graph,
+equal K2 counts.
 The modes of slices 6-7 by ``chip_smoke.py``'s checks of phases 13-15:
 ``keyframe_to_voxels`` with every field equal and at most 1 % of the valid
 records in a voxel 1 off on an axis, the Sim(3) RANSAC and pose graph as
@@ -768,3 +772,67 @@ def test_flow_graphs_equal_the_eager_solve(cuda_device, lanes, monkeypatch):
         u, v = _solved_flow(cfg.flow, cur, m1, m2, prev, out[2])
         assert torch.equal(out[4][0], u) and torch.equal(out[4][1], v), s
     assert ck.launch_counts() == counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [0, 4])
+def test_geometry_graph_equals_the_eager_branch(cuda_device, lanes,
+                                                 monkeypatch):
+    """The front-end's geometry branch from its CUDA graph, captured in
+    this run (the first step runs eagerly and captures, later steps
+    replay), against ``_eager_geometry`` over the same twelve steps of
+    ``dyn_walk`` depths (lane b of four at frame (s + b) % 6), each step
+    warm-started from the k-means labels the step before returned: the
+    k-means labels, ``label_img``, ``n_clusters``, ``areas`` and
+    ``centers`` equal bit for bit; the labels a step returned unchanged
+    after the next step's replay; one graph, replays one fewer than the
+    steps; K2's wrapper calls and CUDA launches by shape equal."""
+    from sindslam_tpu_torch.frontend import pipeline as fp
+    from sindslam_tpu_torch.utils import profiling
+
+    dev = cuda_device
+    cfg = SystemConfig()
+    frames = _walk_frames()
+
+    def depth(s):
+        if not lanes:
+            return frames[s % 6][1].to(dev)
+        return torch.stack([frames[(s + b) % 6][1]
+                            for b in range(lanes)]).to(dev)
+
+    def run(branch):
+        prev = torch.full(depth(0).shape, -1, dtype=torch.int32, device=dev)
+        steps = []
+        for s in range(12):
+            kml, rr = branch(depth(s), prev, cfg.camera, cfg.dyna)
+            # the fields a replay does not copy, before the next replay
+            steps.append((kml, rr.label_img, rr.n_clusters.clone(),
+                          rr.areas.clone(), rr.centers.clone()))
+            if s:
+                kept = steps[-2]
+                assert torch.equal(kept[0], kept_kml) and \
+                    torch.equal(kept[1], kept_img), s
+            kept_kml, kept_img = kml.clone(), rr.label_img.clone()
+            prev = kml
+        torch.cuda.synchronize()
+        return steps
+
+    ck.reset_launch_counts()
+    eager = run(fp._eager_geometry)
+    counts = ck.launch_counts()
+    assert counts[0]["cc_labels"] == 12
+    monkeypatch.setattr(fp, "_GRAPHS", {})
+    ck.reset_launch_counts()
+    before = (profiling.geometry_solves, profiling.geometry_graph_replays)
+    reserved = torch.cuda.memory_reserved()
+    graphed = run(fp._geometry)
+    print(f"geometry graph, {lanes} lanes: {len(fp._GRAPHS)} graphs, "
+          f"{torch.cuda.memory_reserved() - reserved} bytes more reserved")
+    assert len(fp._GRAPHS) == 1
+    assert (profiling.geometry_solves - before[0],
+            profiling.geometry_graph_replays - before[1]) == (12, 11)
+    assert ck.launch_counts() == counts
+    for s, (g, e) in enumerate(zip(graphed, eager)):
+        for name, a, b in zip(("kml", "label_img", "n_clusters", "areas",
+                               "centers"), g, e):
+            assert a.dtype == b.dtype and torch.equal(a, b), (s, name)

@@ -13,6 +13,10 @@ motion decides n->n-2 whatever the prediction):
 - on the CPU no level range is a CUDA graph: ``flow_graph_replays`` stays
   0, ``flow_range_solves`` counts the ranges solved, and the flow and K1
   calls are those of the parent's solve in one piece;
+- on the CPU the geometry branch is eager: ``geometry_solves`` counts one
+  a step, ``geometry_graph_replays`` stays 0, and the k-means labels and
+  the RAG merge's result are those of the three stages called one by one,
+  in both forms;
 - importing the module starts no CUDA.
 """
 
@@ -37,11 +41,13 @@ torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCALE, N_FEATURES = 0.25, 300
 CFG = scaled_system_config(SCALE, N_FEATURES)
-STAGES = ("frontend/flow", "frontend/kmeans", "frontend/edges",
-          "frontend/rag_merge", "frontend/flow_mask", "frontend/fusion",
-          "frontend/orb")
+STAGES = ("frontend/flow", "frontend/geometry", "frontend/flow_mask",
+          "frontend/fusion", "frontend/orb")
 # each span inside a stage, by the stage it sits in
 PARENT = {
+    "frontend/kmeans": "frontend/geometry",
+    "frontend/edges": "frontend/geometry",
+    "frontend/rag_merge": "frontend/geometry",
     "flow/pyramid": "frontend/flow", "flow/presolve": "frontend/flow",
     "flow/decide": "frontend/flow", "flow/finish": "frontend/flow",
     "flow/restart": "frontend/flow", "flow/photo": "frontend/flow",
@@ -258,12 +264,35 @@ def test_the_cpu_solves_every_level_range_eagerly(frames, form, ranges,
     assert step_calls == dict(calls)
 
 
+@pytest.mark.parametrize("lanes", [0, 2])
+def test_the_cpu_runs_the_geometry_branch_eagerly(frames, lanes):
+    state = _state(frames, lanes)
+    replays = profiling.geometry_graph_replays
+    for k in (1, 2):
+        rgb, depth = _frame(frames, k, lanes)
+        prev = state.prev_labels
+        solves = profiling.geometry_solves
+        out, state = tp.frontend_step(rgb, depth, state, CFG)
+        assert profiling.geometry_solves == solves + 1
+        assert profiling.geometry_graph_replays == replays
+        # the stages one by one, as the step ran them before the branch
+        kml, _c = tp.seg_by_kmeans(depth, CFG.camera, CFG.dyna, prev)
+        er = tp.cal_occluded(depth, CFG.camera, CFG.dyna)
+        rr = tp.rag_merge(kml, er.occluded1, er.occluded2, er.total_area,
+                          depth, CFG.dyna)
+        assert torch.equal(state.prev_labels, kml), k
+        assert torch.equal(out.label_img, rr.label_img), k
+        got_kml, got = tp._geometry(depth, prev, CFG.camera, CFG.dyna)
+        assert torch.equal(got_kml, kml) and _equal(tuple(got), tuple(rr)), k
+
+
 def test_importing_profiling_starts_no_cuda():
     code = ("import torch, sindslam_tpu_torch.utils.profiling as p; "
             "p.span('a/b'); assert not torch.cuda.is_initialized(); "
             "print(p.flow_restarts, p.flow_range_solves, "
-            "p.flow_graph_replays)")
+            "p.flow_graph_replays, p.geometry_solves, "
+            "p.geometry_graph_replays)")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.split() == ["0", "0", "0"]
+    assert res.stdout.split() == ["0"] * 5

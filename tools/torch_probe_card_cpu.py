@@ -32,8 +32,8 @@ seconds each draw mode took are command time, every ATE is a SLAM accuracy.
 ``--deterministic`` runs everything under
 ``torch.use_deterministic_algorithms(True, warn_only=True)`` (phase 12's
 mode; phase 11 runs without it). The recorded runs solve the flow's level
-ranges eagerly (``eager_flow``): on the card a CUDA graph's replay calls
-none of the wrappers they record.
+ranges and the geometry branch eagerly (``without_graphs``): on the card a
+CUDA graph's replay calls none of the stages and wrappers they record.
 """
 
 from __future__ import annotations
@@ -171,18 +171,21 @@ class Recorder:
 
 
 @contextlib.contextmanager
-def eager_flow():
-    """The flow's level ranges solved call by call (``ops/flow.py``'s
-    ``_eager_range`` in ``_solve_range``'s place), with the kernels and
-    arguments a CUDA graph's replay would launch."""
+def without_graphs():
+    """The flow's level ranges and the geometry branch run call by call
+    (``ops/flow.py``'s ``_eager_range`` in ``_solve_range``'s place,
+    ``frontend/pipeline.py``'s ``_eager_geometry`` in ``_geometry``'s),
+    with the stages, kernels and arguments a CUDA graph's replay would
+    launch."""
+    from sindslam_tpu_torch.frontend import pipeline as fp
     from sindslam_tpu_torch.ops import flow as fl
 
-    graphed = fl._solve_range
-    fl._solve_range = fl._eager_range
+    graphed = fl._solve_range, fp._geometry
+    fl._solve_range, fp._geometry = fl._eager_range, fp._eager_geometry
     try:
         yield
     finally:
-        fl._solve_range = graphed
+        fl._solve_range, fp._geometry = graphed
 
 
 def run_frontend(torch, rec, frames, cfg, dev, draws: str):
@@ -200,7 +203,7 @@ def run_frontend(torch, rec, frames, cfg, dev, draws: str):
         st = st._replace(generator=gen)
     outs = []
     rec.on = True
-    with eager_flow():
+    with without_graphs():
         for i, (rgb, depth, _gt, _pose, _ts) in enumerate(frames):
             rec.frame = i
             out, st = fp.frontend_step(rgb, depth, st, cfg)
