@@ -60,26 +60,30 @@ def frame_from_numpy(f: Any, device=None) -> FrameData:
 def detector_state_from_numpy(det: Any, cfg: SystemConfig, device=None,
                               seed: int = 0) -> DynaDetector:
     """The port's ``DynaDetector`` holding the private state of a reference
-    one (``_pyr_m1``, ``_prev_labels``, ...; read with ``np.asarray``). The
-    reference's PRNG key does not carry over."""
+    one (``_pyr_m1``, ``_prev_labels``, ...; read with ``np.asarray``) as
+    its ``FrontendState``; after the reference's frame 0, which leaves no
+    n-2 pyramid, the n-2 pyramid is the n-1 one. The reference's PRNG key
+    does not carry over."""
     out = DynaDetector(cfg, device=device, seed=seed)
-    t = _to(out.device)
-
-    def pyr(p):
-        return None if p is None else tuple(t(x, torch.float32) for x in p)
-
-    out._pyr_m1 = pyr(det._pyr_m1)
-    out._pyr_m2 = pyr(det._pyr_m2)
-    out._prev_large = bool(np.asarray(det._prev_large))
-    out._prev_labels = (None if det._prev_labels is None
-                        else t(det._prev_labels, torch.int32))
-    out._prev_high = t(det._prev_high, torch.bool)
-    out._prev_mask = t(det._prev_mask, torch.int32)
-    out._prev_ratio_img = t(det._prev_ratio_img, torch.float32)
-    out._dyn_score = t(det._dyn_score, torch.float32)
-    out._dyn_depth = t(det._dyn_depth, torch.float32)
-    out._flow_w = tuple(t(x, torch.float32) for x in det._flow_w)
     out._frame_idx = int(det._frame_idx)
+    if det._pyr_m1 is None:
+        return out
+    t = _to(out.device)
+    pyr_m1 = tuple(t(x, torch.float32) for x in det._pyr_m1)
+    out._state = FrontendState(
+        pyr_m1=pyr_m1,
+        pyr_m2=(pyr_m1 if det._pyr_m2 is None
+                else tuple(t(x, torch.float32) for x in det._pyr_m2)),
+        prev_large=bool(np.asarray(det._prev_large)),
+        prev_labels=t(det._prev_labels, torch.int32),
+        prev_mask=t(det._prev_mask, torch.int32),
+        prev_high=t(det._prev_high, torch.bool),
+        ratio_img=t(det._prev_ratio_img, torch.float32),
+        dyn_score=t(det._dyn_score, torch.float32),
+        dyn_depth=t(det._dyn_depth, torch.float32),
+        flow_u_w=t(det._flow_w[0], torch.float32),
+        flow_v_w=t(det._flow_w[1], torch.float32),
+        generator=out._generator)
     return out
 
 

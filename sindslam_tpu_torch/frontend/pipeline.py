@@ -21,6 +21,12 @@ single-frame step on lane b's frames alone.
 On CUDA the geometry branch (k-means, edges, RAG merge) of a step runs as
 one CUDA graph (``_geometry``), as the flow's level ranges do; the single
 stream and the lane form each have a graph of their own.
+
+This module is the one wiring of the front-end's stages: ``frontend_step``
+is ``_detect`` (the draws, the flow, the geometry branch, the flow mask
+and fusion) and then ORB; ``DynaDetector`` runs ``_detect`` from its
+second frame on, and the stateless ``parallel/batch_frontend.py``
+``single_pair`` runs ``_geometry``.
 """
 
 from __future__ import annotations
@@ -128,19 +134,19 @@ def _upload(x: torch.Tensor, dev) -> torch.Tensor:
 
 def _draws(state: FrontendState, cfg: SystemConfig, dev, jitter, gumbel
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One frame's (H, W) jitter and (ransac_iters, N) Gumbel draws, each
-    from the state's generator (in that order) unless given; of lanes, each
-    lane's from its own generator, stacked and uploaded at once."""
+    """One frame's (H, W) jitter and (ransac_iters, N) Gumbel draws on
+    ``dev``, each from the state's generator (in that order) unless given;
+    of lanes, each lane's from its own generator, stacked and uploaded at
+    once."""
     h, w = cfg.camera.height, cfg.camera.width
     n_s = n_grid_samples(h, w, cfg.dyna)
     gens = state.generator
     if not isinstance(gens, tuple):
         if jitter is None:
-            jitter = torch.randn((h, w), generator=gens,
-                                 device=gens.device).to(dev)
+            jitter = torch.randn((h, w), generator=gens, device=gens.device)
         if gumbel is None:
             gumbel = gumbel_draws(cfg.dyna.ransac_iters, n_s, gens, dev)
-        return jitter, gumbel
+        return jitter.to(dev), gumbel.to(dev)
     js, gs = [], []
     for g in gens:
         if jitter is None:
@@ -200,22 +206,16 @@ def _geometry(depth_m: torch.Tensor, prev_labels, cam: CameraConfig,
     return kml.clone(), rr._replace(label_img=rr.label_img.clone())
 
 
-def frontend_step(rgb, depth_m, state: FrontendState, cfg: SystemConfig,
-                  jitter: torch.Tensor | None = None,
-                  gumbel: torch.Tensor | None = None
-                  ) -> Tuple[FrontendOutput, FrontendState]:
-    """Full front-end for one frame: (H, W, 3) uint8 RGB and (H, W) f32
-    metric depth (numpy or tensors) in, output and next state out. On a
-    lane state, (B, H, W, 3) and (B, H, W): one frame a lane.
-
-    ``jitter`` (H, W) standard-normal and ``gumbel`` (ransac_iters, N)
-    standard-Gumbel draws ((B, H, W) and (B, ransac_iters, N) of lanes)
-    replace the state generator's when given.
-
-    The draws and each stage are named ranges (``frontend/*``, through
-    ``profiling.span``). The geometry branch (k-means, edges, RAG merge)
-    is one range, ``frontend/geometry``; on CUDA it replays a CUDA graph
-    (``_geometry``), elsewhere its stages are ranges inside it."""
+def _detect(rgb, depth_m, state: FrontendState, cfg: SystemConfig,
+            jitter: torch.Tensor | None, gumbel: torch.Tensor | None
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                       FrontendState]:
+    """The front-end up to the fused mask: the draws, the flow with its
+    large-motion fallback, the geometry branch, the flow-residual mask and
+    fusion, each a named range (``frontend/*``). Returns the grayscale
+    frame and the metric depth on the state's device, the merge's
+    ``label_img`` and the next state, whose ``prev_mask`` is the frame's
+    dynamic mask and ``prev_large`` its large-motion verdict."""
     dev = state.prev_mask.device
     h, w = cfg.camera.height, cfg.camera.width
     rgb = _as_tensor(rgb, dev)
@@ -260,23 +260,46 @@ def frontend_step(rgb, depth_m, state: FrontendState, cfg: SystemConfig,
                                     if lanes else
                                     1.0 if large_motion else 0.5))
 
-    with span("frontend/orb"):
-        # driver-side dilation, applied only to the feature-erasure mask
-        dyn_wide = im.dilate_ellipse(
-            (fu.dyna_mask == cfg.dyna.mask_dynamic).to(torch.float32),
-            cfg.dyna.mask_dilate_ksize) > 0.5
-        mask_for_orb = torch.where(dyn_wide, cfg.dyna.mask_dynamic,
-                                   fu.dyna_mask)
-        feats = extract_orb(gray, mask_for_orb, cfg.orb, height=h, width=w)
-        kp_depth, kp_ur = _depth_ur(feats.xy, depth_m, cfg.camera)
-
     new_state = FrontendState(
         pyr_m1=pyr_cur, pyr_m2=state.pyr_m1, prev_large=large_motion,
         prev_labels=kml, prev_mask=fu.dyna_mask, prev_high=fm.high_mask,
         ratio_img=fu.ratio_img, dyn_score=fu.dyn_score,
         dyn_depth=fu.dyn_depth, flow_u_w=flow_raw_w[0],
         flow_v_w=flow_raw_w[1], generator=state.generator)
-    out = FrontendOutput(dyna_mask=fu.dyna_mask, label_img=rr.label_img,
-                         features=feats, large_motion=large_motion,
+    return gray, depth_m, rr.label_img, new_state
+
+
+def frontend_step(rgb, depth_m, state: FrontendState, cfg: SystemConfig,
+                  jitter: torch.Tensor | None = None,
+                  gumbel: torch.Tensor | None = None
+                  ) -> Tuple[FrontendOutput, FrontendState]:
+    """Full front-end for one frame: (H, W, 3) uint8 RGB and (H, W) f32
+    metric depth (numpy or tensors) in, output and next state out. On a
+    lane state, (B, H, W, 3) and (B, H, W): one frame a lane.
+
+    ``jitter`` (H, W) standard-normal and ``gumbel`` (ransac_iters, N)
+    standard-Gumbel draws ((B, H, W) and (B, ransac_iters, N) of lanes)
+    replace the state generator's when given.
+
+    The draws and each stage are named ranges (``frontend/*``, through
+    ``profiling.span``). The geometry branch (k-means, edges, RAG merge)
+    is one range, ``frontend/geometry``; on CUDA it replays a CUDA graph
+    (``_geometry``), elsewhere its stages are ranges inside it."""
+    gray, depth_m, label_img, new_state = _detect(rgb, depth_m, state, cfg,
+                                                  jitter, gumbel)
+    dyna_mask = new_state.prev_mask
+    with span("frontend/orb"):
+        # driver-side dilation, applied only to the feature-erasure mask
+        dyn_wide = im.dilate_ellipse(
+            (dyna_mask == cfg.dyna.mask_dynamic).to(torch.float32),
+            cfg.dyna.mask_dilate_ksize) > 0.5
+        mask_for_orb = torch.where(dyn_wide, cfg.dyna.mask_dynamic,
+                                   dyna_mask)
+        feats = extract_orb(gray, mask_for_orb, cfg.orb,
+                            height=cfg.camera.height, width=cfg.camera.width)
+        kp_depth, kp_ur = _depth_ur(feats.xy, depth_m, cfg.camera)
+
+    out = FrontendOutput(dyna_mask=dyna_mask, label_img=label_img,
+                         features=feats, large_motion=new_state.prev_large,
                          kp_depth=kp_depth, kp_ur=kp_ur)
     return out, new_state

@@ -45,13 +45,11 @@ import torch
 
 from sindslam_tpu_torch import resolve_device
 from sindslam_tpu_torch.config import SystemConfig
-from sindslam_tpu_torch.frontend.clustering import seg_by_kmeans
-from sindslam_tpu_torch.frontend.edges import cal_occluded
+from sindslam_tpu_torch.frontend import pipeline as fp
 from sindslam_tpu_torch.frontend.flow_mask import (flow_residual_mask,
                                                    n_grid_samples)
 from sindslam_tpu_torch.frontend.fusion import fuse_masks
 from sindslam_tpu_torch.frontend.orb import OrbFeatures, extract_orb
-from sindslam_tpu_torch.frontend.rag_merge import rag_merge
 from sindslam_tpu_torch.ops import flow as flow_ops
 from sindslam_tpu_torch.ops import image as im
 from sindslam_tpu_torch.ops.homography import gumbel_draws
@@ -66,16 +64,14 @@ def single_pair(rgb: torch.Tensor, rgb_prev: torch.Tensor,
     """Stateless per-pair front-end (no temporal warm start): (mask, labels,
     features) of ``rgb`` against ``rgb_prev``. (B, H, W, 3) stacks of pairs
     with (B, H, W) depths and (B, ransac_iters, N) draws: every lane in one
-    call, the outputs (B, ...)."""
+    call, the outputs (B, ...). The geometry branch is the front-end's
+    (``pipeline._geometry``, cold-started: one CUDA graph on the card)."""
     gray = im.rgb_to_gray(rgb)
     gray_prev = im.rgb_to_gray(rgb_prev)
     valid = (depth > 0.05) & (depth <= cfg.dyna.max_depth_m)
 
     u, v = flow_ops.flow_at_working_scale(gray, gray_prev, cfg.flow)
-    kml, _ = seg_by_kmeans(depth, cfg.camera, cfg.dyna, None)
-    er = cal_occluded(depth, cfg.camera, cfg.dyna)
-    rr = rag_merge(kml, er.occluded1, er.occluded2, er.total_area, depth,
-                   cfg.dyna)
+    _kml, rr = fp._geometry(depth, None, cfg.camera, cfg.dyna)
     fm = flow_residual_mask(u, v, torch.ones_like(gray), valid, cfg.dyna,
                             gumbel, depth_m=depth)
     # fusion with no persistence: zero previous evidence, no flow warp
@@ -143,8 +139,6 @@ def batch_temporal_frontend(cfg: SystemConfig, device=None,
     (B, T) bool on the CPU, n_feats (B, T) int32)``. ``jitter`` (B, T, H, W)
     and ``gumbel`` (B, T, ransac_iters, N) replace the lanes' own draws
     when given. With a mesh, B must divide over its devices."""
-    from sindslam_tpu_torch.frontend.pipeline import frontend_step, init_state
-
     dev = mesh.device if mesh is not None else resolve_device(device)
 
     def run(rgbs, depths, jitter: Optional[torch.Tensor] = None,
@@ -154,10 +148,10 @@ def batch_temporal_frontend(cfg: SystemConfig, device=None,
         depths = depths[own].to(dev, torch.float32)
         jitter = None if jitter is None else jitter[own].to(dev)
         gumbel = None if gumbel is None else gumbel[own].to(dev)
-        state = init_state(cfg, im.rgb_to_gray(rgbs[:, 0]), device=dev)
+        state = fp.init_state(cfg, im.rgb_to_gray(rgbs[:, 0]), device=dev)
         masks, large, n_feats = [], [], []
         for t in range(rgbs.shape[1]):
-            out, state = frontend_step(
+            out, state = fp.frontend_step(
                 rgbs[:, t].contiguous(), depths[:, t].contiguous(), state,
                 cfg, jitter=None if jitter is None else jitter[:, t],
                 gumbel=None if gumbel is None else gumbel[:, t])

@@ -33,9 +33,10 @@ The flow's level ranges from CUDA graphs against ``_solve_pyramid_range``
 called directly: equal flow bit for bit over three steps kept to the end,
 in both forms, continuing and restarting, with equal K1 counts. The
 geometry branch (k-means, edges, RAG merge) from its CUDA graph against
-the eager branch over twelve steps, one lane and four: every output equal
-bit for bit, a step's outputs unchanged by the next replay, one graph,
-equal K2 counts.
+the eager branch over twelve steps, one lane and four, warm-started and
+cold: every output equal bit for bit, a step's outputs unchanged by the
+next replay, one graph, equal K2 counts. ``DynaDetector`` with its graphs
+against one without, over six frames: equal masks and labels.
 The modes of slices 6-7 by ``chip_smoke.py``'s checks of phases 13-15:
 ``keyframe_to_voxels`` with every field equal and at most 1 % of the valid
 records in a voxel 1 off on an axis, the Sim(3) RANSAC and pose graph as
@@ -775,18 +776,21 @@ def test_flow_graphs_equal_the_eager_solve(cuda_device, lanes, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("warm", [True, False])
 @pytest.mark.parametrize("lanes", [0, 4])
-def test_geometry_graph_equals_the_eager_branch(cuda_device, lanes,
+def test_geometry_graph_equals_the_eager_branch(cuda_device, lanes, warm,
                                                  monkeypatch):
     """The front-end's geometry branch from its CUDA graph, captured in
     this run (the first step runs eagerly and captures, later steps
     replay), against ``_eager_geometry`` over the same twelve steps of
     ``dyn_walk`` depths (lane b of four at frame (s + b) % 6), each step
-    warm-started from the k-means labels the step before returned: the
+    warm-started from the k-means labels the step before returned, or
+    each cold (``prev_labels=None``, as ``single_pair`` calls it): the
     k-means labels, ``label_img``, ``n_clusters``, ``areas`` and
     ``centers`` equal bit for bit; the labels a step returned unchanged
     after the next step's replay; one graph, replays one fewer than the
-    steps; K2's wrapper calls and CUDA launches by shape equal."""
+    steps; K2's wrapper calls and CUDA launches by shape equal. Prints the
+    memory the key's graph reserves."""
     from sindslam_tpu_torch.frontend import pipeline as fp
     from sindslam_tpu_torch.utils import profiling
 
@@ -801,7 +805,8 @@ def test_geometry_graph_equals_the_eager_branch(cuda_device, lanes,
                             for b in range(lanes)]).to(dev)
 
     def run(branch):
-        prev = torch.full(depth(0).shape, -1, dtype=torch.int32, device=dev)
+        prev = (torch.full(depth(0).shape, -1, dtype=torch.int32, device=dev)
+                if warm else None)
         steps = []
         for s in range(12):
             kml, rr = branch(depth(s), prev, cfg.camera, cfg.dyna)
@@ -813,7 +818,7 @@ def test_geometry_graph_equals_the_eager_branch(cuda_device, lanes,
                 assert torch.equal(kept[0], kept_kml) and \
                     torch.equal(kept[1], kept_img), s
             kept_kml, kept_img = kml.clone(), rr.label_img.clone()
-            prev = kml
+            prev = kml if warm else None
         torch.cuda.synchronize()
         return steps
 
@@ -826,7 +831,8 @@ def test_geometry_graph_equals_the_eager_branch(cuda_device, lanes,
     before = (profiling.geometry_solves, profiling.geometry_graph_replays)
     reserved = torch.cuda.memory_reserved()
     graphed = run(fp._geometry)
-    print(f"geometry graph, {lanes} lanes: {len(fp._GRAPHS)} graphs, "
+    print(f"geometry graph, {lanes} lanes, {'warm' if warm else 'cold'}: "
+          f"{len(fp._GRAPHS)} graphs, "
           f"{torch.cuda.memory_reserved() - reserved} bytes more reserved")
     assert len(fp._GRAPHS) == 1
     assert (profiling.geometry_solves - before[0],
@@ -836,3 +842,41 @@ def test_geometry_graph_equals_the_eager_branch(cuda_device, lanes,
         for name, a, b in zip(("kml", "label_img", "n_clusters", "areas",
                                "centers"), g, e):
             assert a.dtype == b.dtype and torch.equal(a, b), (s, name)
+
+
+@pytest.mark.cuda
+def test_detector_graphed_equals_eager(cuda_device, monkeypatch):
+    """``DynaDetector`` on the card over the six ``dyn_walk`` frames, its
+    flow ranges and geometry branch replayed from CUDA graphs captured in
+    this run, against a second detector with every graph off
+    (``_graphs.replayable`` false), frame by frame under deterministic
+    sums: masks and label images equal bit for bit, some pixel dynamic,
+    the geometry graph captured at frame 1 and replayed from frame 2 on."""
+    from sindslam_tpu_torch.frontend import pipeline as fp
+    from sindslam_tpu_torch.frontend.dyna_detect import DynaDetector
+    from sindslam_tpu_torch.ops import _graphs
+    from sindslam_tpu_torch.ops import flow as fl
+    from sindslam_tpu_torch.utils import profiling
+
+    cfg = SystemConfig()
+    monkeypatch.setattr(fp, "_GRAPHS", {})
+    monkeypatch.setattr(fl, "_GRAPHS", {})
+    graphed = DynaDetector(cfg, device=cuda_device)
+    eager = DynaDetector(cfg, device=cuda_device)
+    replays = profiling.geometry_graph_replays
+    dynamic = 0
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for i, (rgb, depth) in enumerate(_walk_frames()):
+            rgb, depth = rgb.to(cuda_device), depth.to(cuda_device)
+            with monkeypatch.context() as m:
+                m.setattr(_graphs, "replayable", lambda dev: False)
+                em, el = eager.detect(rgb, depth)
+            gm, gl = graphed.detect(rgb, depth)
+            assert torch.equal(gm, em) and torch.equal(gl, el), i
+            dynamic += int((gm == cfg.dyna.mask_dynamic).sum())
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert len(fp._GRAPHS) == 1
+    assert profiling.geometry_graph_replays - replays == 4
+    assert dynamic > 0, "no dynamic pixel in six frames: a trivial case"

@@ -65,7 +65,10 @@ def test_dyna_detector_matches_jax():
         jm, jl = jd.detect(jnp.asarray(rgb), jnp.asarray(depth))
         if i == 0:
             tm, tl = td.detect(rgb, depth)
-            assert td._pyr_m2 is None and td._prev_labels is not None
+            # no n-2 pyramid after frame 0: the state's is its n-1
+            assert td._frame_idx == 1
+            assert td._state.pyr_m2 is td._state.pyr_m1
+            assert td._state.prev_labels is not None
             np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
             np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
             assert set(np.unique(tm.numpy())) <= {0, 125}
@@ -74,7 +77,7 @@ def test_dyna_detector_matches_jax():
             tm, tl = td.detect(rgb, depth, jitter=jitter, gumbel=gumbel)
             assert (tm.numpy() == np.asarray(jm)).mean() >= 0.99, i
             assert (tl.numpy() == np.asarray(jl)).mean() >= 0.99, i
-            assert td._prev_large == bool(jd._prev_large)
+            assert td._state.prev_large == bool(jd._prev_large)
         assert tm.dtype == torch.int32 and tl.dtype == torch.int32
         assert tm.shape == (h, w)
         dynamic_seen += int((tm == 255).sum())
@@ -99,15 +102,17 @@ def test_detector_state_from_numpy_steps_like_jax():
     jd.detect(jnp.asarray(frames[0][0]), jnp.asarray(frames[0][1]))
     for i in (1, 2):
         td = convert.detector_state_from_numpy(jd, tcfg, device="cpu")
-        assert td._frame_idx == i and (td._pyr_m2 is None) == (i == 1)
-        assert len(td._pyr_m1) == len(jd._pyr_m1) >= 2
+        st = td._state
+        assert td._frame_idx == i and (st.pyr_m2 is st.pyr_m1) == (i == 1)
+        assert len(st.pyr_m1) == len(jd._pyr_m1) >= 2
         _key, jitter, gumbel = _jax_draws(jd._key, cfg, n_s)
         rgb, depth, _gt = frames[i]
         jm, jl = jd.detect(jnp.asarray(rgb), jnp.asarray(depth))
         tm, tl = td.detect(rgb, depth, jitter=jitter, gumbel=gumbel)
         assert (tm.numpy() == np.asarray(jm)).mean() >= 0.99
         assert (tl.numpy() == np.asarray(jl)).mean() >= 0.99
-        assert td._pyr_m2 is not None and td._frame_idx == i + 1
+        assert td._state.pyr_m2 is not td._state.pyr_m1
+        assert td._frame_idx == i + 1
 
 
 def test_detector_draws_from_its_own_generator_and_obeys_the_device_rule(monkeypatch):
@@ -117,6 +122,7 @@ def test_detector_draws_from_its_own_generator_and_obeys_the_device_rule(monkeyp
         td = t_dd.DynaDetector(tcfg, device="cpu", seed=seed)
         for rgb, depth, _gt in frames:
             mask, _lab = td.detect(rgb, depth)
+            assert td._state.generator is td._generator
         runs.append(mask.numpy())
         assert set(np.unique(runs[-1])) <= {0, 125, 255}
     np.testing.assert_array_equal(runs[0], runs[1])   # same seed, same mask
