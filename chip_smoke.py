@@ -36,8 +36,9 @@
 6. runs frames 2-6 again under ``torch.profiler`` and prints the device's
    busy time and idle share per frame, the host time per stage and the
    device time of the top kernels and the host-to-device copies per frame,
-   and holds K1's launch counter (which the flow's CUDA graph replays add
-   to from their captures) to the K1 launches the trace shows;
+   and holds the launch counters of K1-K4 (which the CUDA graph replays
+   of the flow, the geometry branch and ORB add to from their captures)
+   to the launches of each kernel the trace shows;
 7. holds tracking on the card against tracking on the CPU: two consecutive
    frames' features from the 640x480 run go through the matcher,
    ``track_against_frame`` and ``full_track_step`` (the map being the
@@ -437,10 +438,9 @@ class Recorder:
     """Wraps the kernel wrappers of ``cuda_kernels`` and keeps, per kernel
     and call signature (K1: per level shape, K2: per sweep budget), the
     inputs of the last of the largest non-trivial calls the main path
-    made. The flow's level ranges and the geometry branch run call by call
-    meanwhile (``ops/flow.py``'s ``_eager_range`` in ``_solve_range``'s
-    place, ``frontend/pipeline.py``'s ``_eager_geometry`` in
-    ``_geometry``'s): a CUDA graph's replay calls no wrapper."""
+    made. The flow's level ranges, the geometry branch and ORB run call by
+    call meanwhile (``ops/_graphs.py``'s ``replayable`` false): a CUDA
+    graph's replay calls no wrapper."""
 
     def __init__(self, torch, ck):
         self.torch, self.ck = torch, ck
@@ -452,20 +452,16 @@ class Recorder:
             orig = getattr(self.ck, name)
             self.saved[name] = orig
             setattr(self.ck, name, self._wrap(name, orig))
-        from sindslam_tpu_torch.frontend import pipeline as fp
-        from sindslam_tpu_torch.ops import flow as fl
+        from sindslam_tpu_torch.ops import _graphs
 
-        self.graphed = ((fl, "_solve_range", fl._solve_range),
-                        (fp, "_geometry", fp._geometry))
-        fl._solve_range = fl._eager_range
-        fp._geometry = fp._eager_geometry
+        self._graphs, self.replayable = _graphs, _graphs.replayable
+        _graphs.replayable = lambda dev: False
         return self
 
     def __exit__(self, *exc):
         for name, orig in self.saved.items():
             setattr(self.ck, name, orig)
-        for mod, name, graphed in self.graphed:
-            setattr(mod, name, graphed)
+        self._graphs.replayable = self.replayable
 
     def _wrap(self, name, orig):
         def rec(*args, **kw):
@@ -2566,10 +2562,9 @@ def phase_card_cpu(torch, dev, cfg, frames) -> None:
     the card bit for bit (K2-K4 too), and the masks and keypoints to phase
     4's bounds (the flow still parts by the float order of the resize
     products and the card's scans: ROADMAP, not port faults). The recorded
-    runs solve the flow's level ranges and the geometry branch eagerly;
-    the card's run as the front-end makes it, the ranges and the branch
-    replayed from CUDA graphs, is held to the recorded card run bit for
-    bit."""
+    runs solve the flow's level ranges, the geometry branch and ORB
+    eagerly; the card's run as the front-end makes it, the three replayed
+    from CUDA graphs, is held to the recorded card run bit for bit."""
     from sindslam_tpu_torch.frontend import pipeline as fp
     from sindslam_tpu_torch.ops import image as im
 
@@ -3250,6 +3245,16 @@ def main() -> int:
     check(k2_traced == k2_counted > 0,
           f"cc_labels: the trace shows {k2_traced} cc_tile_kernel launches "
           f"in {n_prof} frames, the counter {k2_counted}")
+    # K3's and K4's wrapper calls, which a replay of the ORB graph adds to
+    # from its capture, against their launches in the trace (one each)
+    for name, kernel in (("fast_nms", "fast_nms_kernel"),
+                         ("brief_from_patches", "brief_kernel")):
+        traced = sum(c for n, (_t, c) in by_name.items() if kernel in n)
+        print(f"  {name}: {traced} {kernel} launches in the trace, "
+              f"{ck.LAUNCHES[name]} counted", flush=True)
+        check(traced == ck.LAUNCHES[name] == n_prof,
+              f"{name}: the trace shows {traced} {kernel} launches in "
+              f"{n_prof} frames, the counter {ck.LAUNCHES[name]}")
     t_h2d, n_h2d = 0.0, 0
     for name, (t, c) in by_name.items():
         if "memcpy" in name.lower() and "htod" in name.lower():
@@ -3638,10 +3643,12 @@ def main() -> int:
     lap("phase 17, the multi-device paths")
     phase_bench(torch, ck)
     lap("phase 18, bench_torch on the card")
+    from sindslam_tpu_torch.frontend import orb as orb_mod
     from sindslam_tpu_torch.ops import _graphs
     from sindslam_tpu_torch.ops import flow as fl
-    print(f"the CUDA graphs at the end: {len(fl._GRAPHS)} of the flow and "
-          f"{len(fp._GRAPHS)} of the geometry branch in "
+    print(f"the CUDA graphs at the end: {len(fl._GRAPHS)} of the flow, "
+          f"{len(fp._GRAPHS)} of the geometry branch and "
+          f"{len(orb_mod._GRAPHS)} of ORB in "
           f"{len(_graphs._POOLS)} pools; device memory reserved "
           f"{torch.cuda.memory_reserved()} B, allocated "
           f"{torch.cuda.memory_allocated()} B, peak allocated "

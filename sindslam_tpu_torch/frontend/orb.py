@@ -15,6 +15,10 @@ it with the 64-angle-bin offset table and packs the bits. Descriptors are
 stacked (B, N, ...): one K3 launch scores the (B, atlas_h, W) stack of
 atlases and one K4 launch describes every lane's keypoints; lane b is
 computed exactly as the same call on lane b alone.
+
+On CUDA ``extract_orb`` replays the whole extraction, K3 and K4 with it, as
+one CUDA graph of ``_eager_orb`` a key, as the front-end's flow ranges and
+geometry branch do.
 """
 
 from __future__ import annotations
@@ -28,8 +32,10 @@ import torch
 
 from sindslam_tpu_torch.config import ORBConfig
 from sindslam_tpu_torch.frontend.rag_merge import top_k_stable
+from sindslam_tpu_torch.ops import _graphs
 from sindslam_tpu_torch.ops import cuda_kernels as ck
 from sindslam_tpu_torch.ops import image as im
+from sindslam_tpu_torch.utils import profiling
 from sindslam_tpu_torch.utils.profiling import span
 
 _PATCH_RADIUS = 15      # IC-angle circular patch (HALF_PATCH_SIZE)
@@ -196,9 +202,10 @@ def _binned_offset_table() -> np.ndarray:
     return out
 
 
-@functools.lru_cache(maxsize=4)
+@functools.lru_cache(maxsize=None)
 def _binned_offset_table_on(device: torch.device) -> torch.Tensor:
-    """The table as an int32 tensor, uploaded once per device."""
+    """The table as an int32 tensor, uploaded once per device and never
+    evicted: the ORB graph's K4 reads it by address at every replay."""
     return torch.from_numpy(_binned_offset_table()).to(device)
 
 
@@ -258,22 +265,18 @@ def _atlas_layout(height: int, width: int, n_levels: int, scale: float):
     return shapes, offs, y - _ATLAS_GAP, layout
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=None)
 def _atlas_offsets_on(offs: Tuple[int, ...], device: torch.device
                       ) -> torch.Tensor:
     """(L, 1, 2) int64 (y-offset, 0) of each level in the atlas, uploaded
-    once per layout and device."""
+    once per layout and device and never evicted, as the table above."""
     return torch.tensor([[[y, 0]] for y in offs], device=device)
 
 
-def extract_orb(gray: torch.Tensor, dyna_mask: torch.Tensor, cfg: ORBConfig,
-                height: int = 480, width: int = 640) -> OrbFeatures:
-    """ORB features of an (H, W) grayscale image, erasing keypoints on
-    dynamic pixels (mask == 255) with the < min_keypoints revert rule; each
-    level over-selects and refills erased keypoints with the next best.
-    (B, H, W) stacks of images and masks give features stacked (B, N,
-    ...). Its parts are the named ranges ``orb/atlas``, ``orb/fields``,
-    ``orb/select`` and ``orb/describe``."""
+def _eager_orb(gray: torch.Tensor, dyna_mask: torch.Tensor, cfg: ORBConfig,
+               height: int = 480, width: int = 640) -> OrbFeatures:
+    """``extract_orb`` operation by operation, in the named ranges
+    ``orb/atlas``, ``orb/fields``, ``orb/select`` and ``orb/describe``."""
     shapes, offs, atlas_h, layout = _atlas_layout(height, width, cfg.n_levels,
                                                   cfg.scale_factor)
     quotas = level_quotas(cfg.n_features, cfg.n_levels, cfg.scale_factor)
@@ -341,6 +344,44 @@ def extract_orb(gray: torch.Tensor, dyna_mask: torch.Tensor, cfg: ORBConfig,
         valid = torch.where(revert[..., None], valid, survivors)
     return OrbFeatures(xy=xy, level=lvl, angle=ang, score=sc, desc=desc,
                        valid=valid)
+
+
+# each key's ORB graph (see ``extract_orb``)
+_GRAPHS: dict = {}
+
+
+def extract_orb(gray: torch.Tensor, dyna_mask: torch.Tensor, cfg: ORBConfig,
+                height: int = 480, width: int = 640) -> OrbFeatures:
+    """ORB features of an (H, W) grayscale image, erasing keypoints on
+    dynamic pixels (mask == 255) with the < min_keypoints revert rule; each
+    level over-selects and refills erased keypoints with the next best.
+    (B, H, W) stacks of images and masks give features stacked (B, N,
+    ...).
+
+    ``_eager_orb``, on CUDA as one CUDA graph (``_graphs.solve``): the
+    first call with a key runs it eagerly and captures the graph, every
+    later call copies ``gray`` and ``dyna_mask`` into the graph's inputs
+    and replays it. The key: the shapes and dtypes of both (with the lane
+    axis), ``cfg``, ``height``, ``width`` and what the capture ran under;
+    its graph has a memory pool of its own. A replay returns copies of
+    every field, which outlive the key's next replay (stereo's second
+    image, a kept keyframe). On the CPU, and inside another capture, the
+    eager extraction."""
+    profiling.orb_solves += 1
+    if not _graphs.replayable(gray.device):
+        return _eager_orb(gray, dyna_mask, cfg, height, width)
+
+    def solve(g, m):
+        return _eager_orb(g, m, cfg, height, width)
+
+    key = (tuple(gray.shape), gray.dtype, tuple(dyna_mask.shape),
+           dyna_mask.dtype, cfg, height, width)
+    feats, replayed = _graphs.solve(_GRAPHS, key, key, solve,
+                                    (gray, dyna_mask))
+    if not replayed:
+        return feats
+    profiling.orb_graph_replays += 1
+    return OrbFeatures(*(t.clone() for t in feats))
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:

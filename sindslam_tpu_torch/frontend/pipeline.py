@@ -19,8 +19,9 @@ keeps its own large-motion regime on the device, and lane b equals the
 single-frame step on lane b's frames alone.
 
 On CUDA the geometry branch (k-means, edges, RAG merge) of a step runs as
-one CUDA graph (``_geometry``), as the flow's level ranges do; the single
-stream and the lane form each have a graph of their own.
+one CUDA graph (``_geometry``), as the flow's level ranges and ORB
+(``orb.extract_orb``) do; the single stream and the lane form each have a
+graph of their own.
 
 This module is the one wiring of the front-end's stages: ``frontend_step``
 is ``_detect`` (the draws, the flow, the geometry branch, the flow mask

@@ -2,8 +2,9 @@
 
 A stretch is a function of a few tensors that launches hundreds of small
 operations and reads nothing back on the host: the flow's level ranges
-(``ops/flow.py::_solve_range``) and the geometry branch
-(``frontend/pipeline.py::_geometry``). ``solve`` runs it as one CUDA graph:
+(``ops/flow.py::_solve_range``), the geometry branch
+(``frontend/pipeline.py::_geometry``) and ORB extraction
+(``frontend/orb.py::extract_orb``). ``solve`` runs it as one CUDA graph:
 the host then launches the stretch at once instead of operation by
 operation. A graph replays the very kernels the eager call launches, so
 every value is the same bit for bit.

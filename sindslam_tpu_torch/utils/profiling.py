@@ -7,8 +7,8 @@ the example program's timers ``rgbd_tum_noros.cc:198-209``). This module keeps t
 feature: named stage timers with running statistics. It also holds the
 program's named ranges (``span``) and always-on host counters of the
 front-end's flow (its restarts, its level ranges and their CUDA graph
-replays) and geometry branch (its runs and their replays), which a
-profiler run or a benchmark reads.
+replays), geometry branch and ORB extraction (their runs and their
+replays), which a profiler run or a benchmark reads.
 """
 
 from __future__ import annotations
@@ -74,6 +74,10 @@ flow_graph_replays = 0
 # graphed or not, and those a CUDA graph's replay served, as above
 geometry_solves = 0
 geometry_graph_replays = 0
+# ORB extraction (``frontend.orb.extract_orb``): its calls, graphed or not,
+# and those a CUDA graph's replay served, as above
+orb_solves = 0
+orb_graph_replays = 0
 
 
 def span(name: str):

@@ -35,8 +35,13 @@ in both forms, continuing and restarting, with equal K1 counts. The
 geometry branch (k-means, edges, RAG merge) from its CUDA graph against
 the eager branch over twelve steps, one lane and four, warm-started and
 cold: every output equal bit for bit, a step's outputs unchanged by the
-next replay, one graph, equal K2 counts. ``DynaDetector`` with its graphs
-against one without, over six frames: equal masks and labels.
+next replay, one graph, equal K2 counts. ORB extraction from its CUDA
+graph against the eager extraction over twelve frames whose masks change,
+one lane and four, and under deterministic algorithms: every field equal
+bit for bit (a mask that reverts the erasure among them), features kept
+unchanged by later replays, two calls in a row each its own, one graph,
+equal K3 and K4 counts. ``DynaDetector`` with its graphs against one
+without, over six frames: equal masks and labels.
 The modes of slices 6-7 by ``chip_smoke.py``'s checks of phases 13-15:
 ``keyframe_to_voxels`` with every field equal and at most 1 % of the valid
 records in a voxel 1 off on an axis, the Sim(3) RANSAC and pose graph as
@@ -842,6 +847,111 @@ def test_geometry_graph_equals_the_eager_branch(cuda_device, lanes, warm,
         for name, a, b in zip(("kml", "label_img", "n_clusters", "areas",
                                "centers"), g, e):
             assert a.dtype == b.dtype and torch.equal(a, b), (s, name)
+
+
+def _orb_masks(h: int, w: int):
+    """Twelve (H, W) int32 dynamic masks (255 / 125 / 0) that change from
+    frame to frame: a dynamic block and a band of 125 that move; mask 7 is
+    dynamic but for a 64x64 corner, so too few keypoints survive it and
+    ORB reverts the erasure."""
+    masks = []
+    for s in range(12):
+        m = torch.zeros((h, w), dtype=torch.int32)
+        y, x = (37 * s) % (h - 200), (53 * s) % (w - 240)
+        m[y:y + 160, x:x + 200] = 255
+        m[y + 170:y + 200, :] = 125
+        if s == 7:
+            m.fill_(255)
+            m[:64, :64] = 0
+        masks.append(m)
+    return masks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,deterministic", [(0, False), (4, False),
+                                                 (0, True)])
+def test_orb_graph_equals_the_eager_extraction(cuda_device, lanes,
+                                               deterministic, monkeypatch):
+    """``extract_orb`` from its CUDA graph, captured in this run (the first
+    call runs eagerly and captures, later calls replay), against
+    ``_eager_orb`` over the same twelve frames of ``dyn_walk`` gray images
+    and masks that change from frame to frame (lane b of four at frame
+    (s + b) % 6 with mask (s + b) % 12), one mask dense enough to revert
+    the erasure: every field equal bit for bit; the features a call
+    returned unchanged after the next call's replay; then two calls in a
+    row on two images (stereo's pattern), each equal to its own eager
+    features; one graph, calls counted 14, replays 13; K3's and K4's
+    wrapper calls equal. Under deterministic algorithms too (the mono
+    path's mode, another key). Prints the memory the key's graph
+    reserves."""
+    from sindslam_tpu_torch.frontend import orb
+    from sindslam_tpu_torch.ops import image as im
+    from sindslam_tpu_torch.utils import profiling
+
+    dev = cuda_device
+    cfg = SystemConfig()
+    h, w = cfg.camera.height, cfg.camera.width
+    grays = [im.rgb_to_gray(rgb.to(dev)) for rgb, _d in _walk_frames()]
+    masks = [m.to(dev) for m in _orb_masks(h, w)]
+
+    def frame(s):
+        if not lanes:
+            return grays[s % 6], masks[s % 12]
+        return (torch.stack([grays[(s + b) % 6] for b in range(lanes)]),
+                torch.stack([masks[(s + b) % 12] for b in range(lanes)]))
+
+    def run(extract):
+        calls = []
+        for s in range(12):
+            feats = extract(*frame(s), cfg.orb, height=h, width=w)
+            calls.append(feats)
+            if s:
+                assert all(torch.equal(a, b) for a, b in
+                           zip(calls[-2], kept)), s
+            kept = [t.clone() for t in feats]
+        # stereo: two images a frame through one key
+        for g in (frame(3)[0], frame(8)[0]):
+            calls.append(extract(g, torch.zeros_like(frame(0)[1]), cfg.orb,
+                                 height=h, width=w))
+        torch.cuda.synchronize()
+        return calls
+
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    try:
+        ck.reset_launch_counts()
+        eager = run(orb._eager_orb)
+        counts = ck.launch_counts()
+        assert counts[0]["fast_nms"] == counts[0]["brief_from_patches"] == 14
+        monkeypatch.setattr(orb, "_GRAPHS", {})
+        ck.reset_launch_counts()
+        before = (profiling.orb_solves, profiling.orb_graph_replays)
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        graphed = run(orb.extract_orb)
+        print(f"ORB graph, {lanes} lanes"
+              f"{', deterministic' if deterministic else ''}: "
+              f"{len(orb._GRAPHS)} graphs, "
+              f"{torch.cuda.memory_reserved() - reserved} bytes more reserved")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert len(orb._GRAPHS) == 1
+    assert (profiling.orb_solves - before[0],
+            profiling.orb_graph_replays - before[1]) == (14, 13)
+    assert ck.launch_counts() == counts
+    for s, (g, e) in enumerate(zip(graphed, eager)):
+        for name, a, b in zip(orb.OrbFeatures._fields, g, e):
+            assert a.dtype == b.dtype and torch.equal(a, b), (s, name)
+    # the dense mask reverted the erasure; the others erased keypoints
+    erased = 0
+    for s, e in enumerate(eager[:12]):
+        found = torch.isfinite(e.score) & (e.score > 0)
+        kept_all = torch.eq(e.valid, found).reshape(max(lanes, 1), -1).all(-1)
+        for b, k in enumerate(kept_all.tolist()):
+            if (s + b) % 12 == 7:
+                assert k, (s, b)
+            erased += not k
+    assert erased > 0
+    assert not torch.equal(graphed[12].desc, graphed[13].desc)
 
 
 @pytest.mark.cuda

@@ -17,6 +17,9 @@ motion decides n->n-2 whatever the prediction):
   a step, ``geometry_graph_replays`` stays 0, and the k-means labels and
   the RAG merge's result are those of the three stages called one by one,
   in both forms;
+- on the CPU ORB is eager: ``orb_solves`` counts one a call (the step's
+  and the direct ones), ``orb_graph_replays`` stays 0, and the features
+  are ``_eager_orb``'s, in both forms;
 - importing the module starts no CUDA.
 """
 
@@ -30,6 +33,7 @@ import torch
 
 from sindslam_tpu_torch.datasets.synthetic import make_benchmark_sequence
 from sindslam_tpu_torch.evaluation.benchmark import scaled_system_config
+from sindslam_tpu_torch.frontend import orb
 from sindslam_tpu_torch.frontend import pipeline as tp
 from sindslam_tpu_torch.ops import cuda_kernels as ck
 from sindslam_tpu_torch.ops import flow as fl
@@ -286,13 +290,37 @@ def test_the_cpu_runs_the_geometry_branch_eagerly(frames, lanes):
         assert torch.equal(got_kml, kml) and _equal(tuple(got), tuple(rr)), k
 
 
+@pytest.mark.parametrize("lanes", [0, 2])
+def test_the_cpu_extracts_orb_eagerly(frames, lanes):
+    state = _state(frames, lanes)
+    replays = profiling.orb_graph_replays
+    for k in (1, 2):
+        solves = profiling.orb_solves
+        out, state = tp.frontend_step(*_frame(frames, k, lanes), state, CFG)
+        assert profiling.orb_solves == solves + 1
+        # the step's mask for ORB: the dynamic pixels dilated
+        dyn = CFG.dyna.mask_dynamic
+        wide = im.dilate_ellipse((state.prev_mask == dyn).to(torch.float32),
+                                 CFG.dyna.mask_dilate_ksize) > 0.5
+        mask = torch.where(wide, dyn, state.prev_mask)
+        gray = im.rgb_to_gray(_frame(frames, k, lanes)[0])
+        hw = dict(height=CFG.camera.height, width=CFG.camera.width)
+        got = orb.extract_orb(gray, mask, CFG.orb, **hw)
+        assert profiling.orb_solves == solves + 2
+        assert profiling.orb_graph_replays == replays
+        want = orb._eager_orb(gray, mask, CFG.orb, **hw)
+        assert _equal(tuple(got), tuple(want)), k
+        assert _equal(tuple(out.features), tuple(want)), k
+        assert got.desc.shape[-2] == CFG.orb.n_features
+
+
 def test_importing_profiling_starts_no_cuda():
     code = ("import torch, sindslam_tpu_torch.utils.profiling as p; "
             "p.span('a/b'); assert not torch.cuda.is_initialized(); "
             "print(p.flow_restarts, p.flow_range_solves, "
             "p.flow_graph_replays, p.geometry_solves, "
-            "p.geometry_graph_replays)")
+            "p.geometry_graph_replays, p.orb_solves, p.orb_graph_replays)")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.split() == ["0"] * 5
+    assert res.stdout.split() == ["0"] * 7

@@ -32,8 +32,9 @@ seconds each draw mode took are command time, every ATE is a SLAM accuracy.
 ``--deterministic`` runs everything under
 ``torch.use_deterministic_algorithms(True, warn_only=True)`` (phase 12's
 mode; phase 11 runs without it). The recorded runs solve the flow's level
-ranges and the geometry branch eagerly (``without_graphs``): on the card a
-CUDA graph's replay calls none of the stages and wrappers they record.
+ranges, the geometry branch and ORB eagerly (``without_graphs``): on the
+card a CUDA graph's replay calls none of the stages and wrappers they
+record.
 """
 
 from __future__ import annotations
@@ -172,20 +173,17 @@ class Recorder:
 
 @contextlib.contextmanager
 def without_graphs():
-    """The flow's level ranges and the geometry branch run call by call
-    (``ops/flow.py``'s ``_eager_range`` in ``_solve_range``'s place,
-    ``frontend/pipeline.py``'s ``_eager_geometry`` in ``_geometry``'s),
-    with the stages, kernels and arguments a CUDA graph's replay would
-    launch."""
-    from sindslam_tpu_torch.frontend import pipeline as fp
-    from sindslam_tpu_torch.ops import flow as fl
+    """The flow's level ranges, the geometry branch and ORB run call by
+    call (``ops/_graphs.py``'s ``replayable`` false), with the stages,
+    kernels and arguments a CUDA graph's replay would launch."""
+    from sindslam_tpu_torch.ops import _graphs
 
-    graphed = fl._solve_range, fp._geometry
-    fl._solve_range, fp._geometry = fl._eager_range, fp._eager_geometry
+    replayable = _graphs.replayable
+    _graphs.replayable = lambda dev: False
     try:
         yield
     finally:
-        fl._solve_range, fp._geometry = graphed
+        _graphs.replayable = replayable
 
 
 def run_frontend(torch, rec, frames, cfg, dev, draws: str):
